@@ -1,4 +1,4 @@
-"""coloc_tpu — TPU-native collaborative visual localization framework.
+"""coloc_tpu — collaborative visual localization framework in JAX.
 
 A greenfield JAX/XLA/Pallas re-design of the capabilities of saihv/coloc
 (CoLoC: collaborative localization for micro aerial vehicles). The reference
@@ -12,7 +12,7 @@ Module map (reference parity noted per module docstring):
   types       — fixed-capacity pytree data model (reference: colocData.hpp)
   geometry/   — SO3/SE3, cameras, triangulation, minimal solvers
   ransac      — batched AC-RANSAC harness (reference: RobustMatcher.hpp)
-  ops/        — Pallas/XLA kernels: Hamming 2-NN, pyramid, FAST, descriptors
+  ops/        — XLA ops + the Pallas (Triton) Hamming 2-NN kernel: pyramid, FAST, descriptors
   frontend    — detect+describe pipeline (reference: GPUDetector.hpp / KORAL)
   matching    — descriptor matching APIs (reference: FeatureMatcher/CPUMatcher/GPUMatcher)
   sfm/        — tracks, triangulation, bundle adjustment, localization
@@ -27,22 +27,17 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry code is precision-critical: on TPU, float32 matmuls/einsums lower
-# to bfloat16 MXU passes under the DEFAULT matmul precision, which silently
-# degrades triangulation, P3P triads, and BA normal equations (measured: map
-# localization error 0.04 deg on CPU vs 2.5 deg on TPU before this). Force
-# full f32. The hot kernels are unaffected: the Hamming matcher uses int8
-# dot_general with int32 accumulation, which this setting does not touch.
+# Geometry code is precision-critical: on the GPU, float32 matmuls/einsums
+# may run in TF32 (about three decimal digits) under the DEFAULT matmul
+# precision, which degrades triangulation, P3P triads and BA normal
+# equations. Force full f32, which holds the geometry to CPU-grade results.
+# The Hamming matcher is unaffected: its int8 dot_general with int32
+# accumulation passes its own precision.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache: TPU compiles of the big fused graphs take
-# 15-130 s (remote-compile path); the cache cuts warm starts to seconds.
-# ONE implementation (policy, TPU-only gate, opt-outs, default dir) lives
-# in coloc_tpu/compile_cache.py; entrypoints re-call enable() harmlessly.
-from coloc_tpu import compile_cache as _compile_cache
-
-_compile_cache.enable()
-
+# The persistent compilation cache (coloc_tpu/compile_cache.py) is turned on
+# by the entry points once the platform is chosen: enabling it here would
+# initialize the backend on import.
 from coloc_tpu.config import (  # noqa: F401
     ColocConfig,
     DetectorOptions,

@@ -2,7 +2,7 @@
 
 Reference parity: SURVEY.md §5 — the reference persists scenes as PLY via
 openMVG::sfm::Save but never loads anything back (a commented-out seed-map
-path exists at coloc.hpp:80). The TPU build makes the map database the
+path exists at coloc.hpp:80). This framework makes the map database the
 checkpointable unit so a localization session can RESUME against a saved map:
   - MapDB (landmarks + descriptor bank + validity)
   - Scene (poses + observations) if present

@@ -9,9 +9,9 @@ Mirrors coloc_node.cpp: reads calib.txt, builds the session, and runs the
 main loop over the image folder. Option defaults follow the reference
 (coloc_node.cpp:73-89: 1.2x 8-level pyramid, FAST threshold 40, Lowe ratio
 0.8, Hamming margin 60, model 'E') EXCEPT --maxkp, which defaults to 1024
-rather than the reference's 5000 — a TPU-friendly capacity that keeps the
+rather than the reference's 5000 — a smaller capacity that keeps the
 fixed-shape banks small; pass --maxkp 5000 for reference-capacity parity
-(throughput at that setting is covered by bench.py's capacity section).
+(chip_smoke.py runs the session at that setting).
 """
 
 from __future__ import annotations
@@ -107,8 +107,8 @@ def main(argv=None):
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    # persistent XLA compile cache, on by default (COLOC_COMPILE_CACHE=0
-    # to opt out) — repeat launches skip the tens-of-seconds jit warmup
+    # persistent XLA compile cache on the GPU (COLOC_COMPILE_CACHE=0 to
+    # opt out) — repeat launches skip the tens-of-seconds jit warmup
     from coloc_tpu import compile_cache
 
     compile_cache.enable()

@@ -7,7 +7,7 @@ hardcoded in `src/coloc_node.cpp:73-89` (maxkp=5000, 8 levels @ 1.2x, FAST
 threshold 40, Lowe ratio 0.8, Hamming margin 60, model 'E', 2 drones).
 
 The reference selects CPU/GPU backends at compile time via #ifdef USE_CUDA;
-here backend choice is a runtime flag (`use_pallas`), and every knob lives in
+here the detector backend is a runtime option, and every knob lives in
 one frozen dataclass that hashes (so it can be a static jit argument).
 """
 
@@ -33,9 +33,8 @@ class DetectorOptions:
     smoothing_radius: int = 2          # box pre-smooth for triplet sampling
     border: int = 16                   # full-res keep-out border (scaled per level, floor 8)
     backend: str = "trip"              # "trip" (KORAL-equivalent) | "akaze" (AKAZE-MLDB parity)
-    # AKAZE accuracy-vs-work frontier knobs (scripts/prof_akaze_frontier.py
-    # measures the trade; defaults = the reference NORMAL preset,
-    # AKAZE.hpp:14-80). Octave count rides num_levels (num_levels // 2,
+    # AKAZE accuracy-vs-work frontier knobs (defaults = the reference
+    # NORMAL preset, AKAZE.hpp:14-80). Octave count rides num_levels (num_levels // 2,
     # capped at 4 — so num_levels=6 gives 3 octaves).
     akaze_sublevels: int = 4           # sublevels per octave
     akaze_cell_samples: int = 4        # MLDB per-cell sample grid (n x n)

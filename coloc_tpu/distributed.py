@@ -3,7 +3,7 @@
 The reference simulates its robot fleet inside ONE process (a sequential
 drone loop, coloc.hpp:128-148) and leaves multi-process deployment to ROS
 topics it never exercises. This module is that deployment: each robot runs
-a `DronePeer` in its own process (its own host/chip), localizing against a
+a `DronePeer` in its own process (its own host/device), localizing against a
 shared map locally, and the collaborative step happens OVER THE WIRE —
 peers publish their feature bundles (keypoints + packed descriptors +
 camera + filtered pose + covariance, io/transport.encode_feature_bundle)
@@ -391,7 +391,13 @@ def main(argv=None) -> int:
             --broker HOST:7777
 
     Maps come from `checkpoint.save_mapdb` (e.g. a bootstrap session or
-    `cli.py --out`'s checkpoint)."""
+    `cli.py --out`'s checkpoint).
+
+    One JAX process per card is the rule: a JAX process reserves three
+    quarters of a GPU's memory when it first uses it. Peers on separate
+    cards pick theirs with CUDA_VISIBLE_DEVICES=<index>; peers that share
+    one card each need an explicit XLA_PYTHON_CLIENT_MEM_FRACTION share,
+    the shares summing to at most 0.9."""
     import argparse
 
     from coloc_tpu import checkpoint
@@ -417,6 +423,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bundle-every", type=int, default=1)
     args = ap.parse_args(argv)
 
+    from coloc_tpu import compile_cache
+
+    compile_cache.enable()   # GPU only; a relaunch reuses compiled graphs
     n_drones = max([args.drone] + args.peers) + 1
     (w, h), Ks, dists = disk.read_calib(args.calib, n_drones)
     config = ColocConfig(

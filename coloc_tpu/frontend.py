@@ -2,19 +2,18 @@
 
 Reference parity: GPUDetector.hpp detectAndDescribe (:216-291) — the KORAL
 pipeline (CUDALERP pyramid -> KFAST per level -> featureAngle -> CLATCH 512
-bits, 4 host<->device hops per frame). TPU redesign keeps the whole frontend
+bits, 4 host<->device hops per frame). This design keeps the whole frontend
 on device in a single trace:
 
-  1. Pyramid + box pre-smooth (MXU matmul resize, ops/pyramid.py).
+  1. Pyramid + box pre-smooth (matmul resize, ops/pyramid.py).
   2. Levels stacked vertically into ONE raster (ops/patches.stack_levels) so
-     FAST + NMS is a single fused Pallas pass and keypoint selection is a
-     single approx_max_k over the whole stacked score map — not 8 per-level
-     top-k calls (per-level reductions cost ~0.5 ms of fixed overhead each).
-  3. Per-keypoint (64, 256) patches DMA'd from the smoothed stack (one
+     FAST + NMS is a single pass and keypoint selection is a single exact
+     top-k (ops/fast.top_k_sorted) over the whole stacked score map — not 8
+     per-level top-k calls.
+  3. Per-keypoint (64, 256) patches sliced from the smoothed stack (one
      descriptor-aligned window per keypoint); orientation moments and the
      steered TRIP-512 sample pool both read the patches through the one-hot
-     MXU sampling path (ops/patches.py) — scattered elementwise gathers are
-     XLA's slow path on TPU (~4 ms/frame measured; patches ~0.5 ms).
+     sampling path (ops/patches.py).
 
 Keypoint coords are rescaled to full resolution by scale_factor**level
 exactly like GPUDetector.hpp:172-182 (coords *1.2^s).
@@ -37,7 +36,6 @@ from coloc_tpu.ops import fast as fast_ops
 from coloc_tpu.ops import orientation as orient_ops
 from coloc_tpu.ops import patches as patch_ops
 from coloc_tpu.ops import pyramid as pyr_ops
-from coloc_tpu.ops.dispatch import use_pallas
 from coloc_tpu.types import Features
 
 _MIN_BORDER = 8  # floor: the 7x7 orientation window must fit
@@ -87,11 +85,11 @@ def _detect_and_describe_trip_batch(
 
     The batch rides the same trick as the pyramid levels: per-image stacked
     rasters concatenate VERTICALLY into one (B * R, WP) buffer
-    (ops/patches.stack_levels_batch), so the fused Pallas FAST+NMS pass and
-    the per-keypoint patch-DMA kernel each launch once for the whole batch
-    — the graph no longer contains B unrolled frontend copies (a D-drone
+    (ops/patches.stack_levels_batch), so the FAST+NMS pass and the
+    per-keypoint patch extraction each run once for the whole batch — the
+    graph no longer contains B unrolled frontend copies (a D-drone
     session step or an F-frame scan body is one detector instance). The
-    per-image top-k is approx_max_k's native batch axis.
+    per-image top-k sorts along the last axis of a (B, R * WP) view.
     """
     images = images.astype(jnp.float32)
     B = images.shape[0]
@@ -99,8 +97,8 @@ def _detect_and_describe_trip_batch(
 
     if B == 1:
         # single-frame specialization: plain 2-D resize matmuls and blur
-        # (the vmapped batch forms lower to batched dot_generals that cost
-        # ~0.2 ms extra at B=1 on v5e; results are identical)
+        # (the vmapped batch forms lower to batched dot_generals; results
+        # are identical)
         lv = pyr_ops.build_pyramid(
             images[0], opts.num_levels, opts.scale_factor
         )
@@ -128,11 +126,8 @@ def _detect_and_describe_trip_batch(
     widths = jnp.asarray(sp_raw.widths)
 
     # --- detection: FAST + NMS over the batched raster, per-image top-k ----
-    if use_pallas():
-        raw, nms = fast_ops.fast_nms_pallas(sp_raw.stacked, opts.fast_threshold)
-    else:
-        raw = fast_ops.fast_score_map(sp_raw.stacked, opts.fast_threshold)
-        nms = fast_ops.nms3(raw)
+    raw = fast_ops.fast_score_map(sp_raw.stacked, opts.fast_threshold)
+    nms = fast_ops.nms3(raw)
     mask = _detection_mask(
         tuple(int(r) for r in sp_raw.row_base),
         tuple(int(h) for h in sp_raw.heights),
@@ -145,16 +140,7 @@ def _detect_and_describe_trip_batch(
     # path always used (the batched form is equivalent but may lower to a
     # different reduction schedule)
     flat = nms.reshape(-1) if B == 1 else nms.reshape(B, R * wp)
-    if R * wp <= 2 * k:
-        top_s, top_i = jax.lax.top_k(flat, k)
-    else:
-        # approx_max_k (recall ~0.95, ~10x cheaper than the exact top_k sort
-        # network at stacked-raster sizes): a few percent of the WEAKEST
-        # selected peaks may swap for near-threshold neighbors relative to
-        # the reference's exact retention — a deliberate deviation; peaks are
-        # unordered NMS survivors, not ranked output (see
-        # ops/fast.topk_keypoints for the same trade and an exact=True knob).
-        top_s, top_i = jax.lax.approx_max_k(flat, k)
+    top_s, top_i = fast_ops.top_k_sorted(flat, k)
     # flatten the (B, k) keypoint grid; all per-keypoint stages below are
     # batch-agnostic given raster-global rows
     boff = jnp.repeat(jnp.arange(B, dtype=jnp.int32) * R, k)   # (B*k,)

@@ -9,7 +9,7 @@ implements INVERSE covariance intersection:
   K = C_f (CA^-1 - w* (w CA + (1-w) CB)^-1),
   L = C_f (CB^-1 - (1-w*) (...)^-1),  x_fused = K a + L b            (:40-49)
 
-TPU-first: the 1-D bounded minimization becomes a fixed-iteration
+Device shape: the 1-D bounded minimization becomes a fixed-iteration
 golden-section search inside the jit (40 iterations, bracket width < 1e-9 —
 comfortably below the reference's 1e-3 eps), fully differentiable-free and
 branch-free. The reference's static-member global state is gone: this is a

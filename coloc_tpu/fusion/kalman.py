@@ -22,7 +22,7 @@ Reference parity: KalmanFilter.hpp —
     2 drones the gate never fires. We implement the evident intent instead:
     the gate activates after WARMUP_STEPS accepted updates per drone.
 
-TPU-first: the whole bank is one (D, ...) pytree updated with vmap; gating is
+Device shape: the whole bank is one (D, ...) pytree updated with vmap; gating is
 a where-select, not a branch.
 """
 
@@ -75,7 +75,7 @@ def update_all(
     opts: FilterOptions,
 ) -> Tuple[FilterBank, Pose, jnp.ndarray, jnp.ndarray]:
     """One filter step for EVERY drone at once (vmapped bank update — the
-    TPU-first shape of the reference's sequential per-drone loop,
+    batched shape of the reference's sequential per-drone loop,
     coloc.hpp:128-148). Returns (bank, poses stacked (D,...), dists (D,),
     rejected (D,))."""
 

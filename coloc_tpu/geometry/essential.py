@@ -123,9 +123,9 @@ def seven_point(x1: jnp.ndarray, x2: jnp.ndarray):
 
     A = _epipolar_design_rows(x1n, x2n)  # (7, 9)
     # null space via complete QR of A^T (trailing 2 columns of Q) — same
-    # replacement as the 5-point solver's null basis: TPU batch SVD costs
-    # ~10x the complete QR at these shapes, and any orthonormal basis of
-    # the 2-dim null space parametrizes the same F pencil
+    # replacement as the 5-point solver's null basis: batched tiny SVDs
+    # cost more than the complete QR, and any orthonormal basis of the
+    # 2-dim null space parametrizes the same F pencil
     q, _ = jnp.linalg.qr(A.T, mode="complete")  # (9, 9)
     F1 = q[:, 7].reshape(3, 3)
     F2 = q[:, 8].reshape(3, 3)
@@ -211,9 +211,9 @@ def symmetric_epipolar_distance_sq_batch(
     Same values as vmapping symmetric_epipolar_distance_sq over Es to
     ~2e-3 relative (exact on small residuals; the deviation concentrates on
     large far-outlier residuals via denominator cancellation — see below),
-    expressed as pure quadratic forms so NO (M, Hm, 3) intermediate is ever materialized (at Hm=7680,
-    M=1024 those were 2 x 94 MB of HBM traffic — the dominant cost of
-    batched-RANSAC scoring):
+    expressed as pure quadratic forms so NO (M, Hm, 3) intermediate is ever
+    materialized (at Hm=7680, M=1024 those would be 2 x 94 MB of device
+    memory traffic):
       numerator  (h2^T E h1)^2      = ((h2 (x) h1) . vec(E))^2
       den img2   ||(E h1)_xy||^2    = h1^T (r0 r0^T + r1 r1^T) h1
       den img1   ||(E^T h2)_xy||^2  = h2^T (c0 c0^T + c1 c1^T) h2
@@ -222,10 +222,9 @@ def symmetric_epipolar_distance_sq_batch(
     true denominator ~ 0 (epipole on the point); clamped from below.
 
     precision: matmul precision for the three contractions. None inherits
-    the library-wide HIGHEST (f32-exact, ~6 MXU passes per f32 matmul on
-    TPU). Pass jax.lax.Precision.DEFAULT for single-pass bf16 matmuls when
-    the residuals only feed a RANKING (RANSAC candidate pre-rank) — ~0.4%
-    relative error, never for inlier classification or NFA scores.
+    the library-wide HIGHEST (full f32). Pass jax.lax.Precision.DEFAULT
+    (TF32 on the GPU) when the residuals only feed a RANKING (RANSAC
+    candidate pre-rank), never for inlier classification or NFA scores.
     """
     Hm = Es.shape[0]
     M = x1.shape[0]

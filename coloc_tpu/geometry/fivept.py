@@ -6,7 +6,7 @@ the 8-point linear solver degenerates when the scene is plane-dominant (all
 points coplanar satisfy a 2-parameter family of E), which is the common case
 for downward/forward-facing MAV cameras — exactly this framework's workload.
 
-TPU-first formulation (no data-dependent branching, no nonsymmetric eig):
+Batched formulation (no data-dependent branching, no nonsymmetric eig):
   1. Null space of the 5x9 epipolar design matrix via SVD -> basis X,Y,Z,W;
      E = x X + y Y + z Z + W.
   2. The 10 cubic constraints (det E = 0 and 2 E E^T E - tr(E E^T) E = 0)
@@ -29,9 +29,6 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-from coloc_tpu.ops.dispatch import interpret_mode, use_pallas
 
 
 class _Poly:
@@ -116,8 +113,8 @@ def _null_basis(x1: jnp.ndarray, x2: jnp.ndarray) -> jnp.ndarray:
         [u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, one], axis=-1
     )  # (5, 9)
     # null space via complete QR of A^T: the trailing 4 columns of Q are
-    # orthogonal to range(A^T) = row space of A. ~10x cheaper than the SVD
-    # route on TPU (batch SVD dominates the whole solver), same f32 accuracy
+    # orthogonal to range(A^T) = row space of A. Cheaper than batched tiny
+    # SVDs, same f32 accuracy
     # under the library-wide HIGHEST matmul precision. Near-double roots of
     # the reduced polynomial cluster differently in this parametrization;
     # the split-seed polish below recovers both members of such pairs.
@@ -129,9 +126,8 @@ def _constraint_rows(X, Y, Z, W):
     """Trace-time cubic-constraint expansion over ANY scalar-like values.
 
     X/Y/Z/W: indexable [r][c] (or array (3,3)) null-basis matrices whose
-    entries are jnp scalars OR (1, T) lane vectors — the same `_Poly`
-    bookkeeping serves the XLA path and the Pallas front kernel. Returns a
-    10 x 20 nested list of coefficient values over `_MONOMIALS`."""
+    entries are jnp scalars or equally shaped arrays. Returns a 10 x 20
+    nested list of coefficient values over `_MONOMIALS`."""
     # E entries as degree-1 polynomials
     E = [[None] * 3 for _ in range(3)]
     for r in range(3):
@@ -207,8 +203,7 @@ def _durand_kerner(coeffs: jnp.ndarray, degree: int = 10, iters: int = 24):
     """Roots of ascending-coefficient polynomial; returns (roots, is_real).
 
     Iteration budget: each DK step is ~150 tiny vector ops inside a
-    sequential fori_loop — dispatch-bound on TPU, so the budget is a direct
-    latency knob. A 200-problem sweep (16/24/32/40/60 iters) showed BIT-
+    sequential fori_loop, so the budget is a direct latency knob. A 200-problem sweep (16/24/32/40/60 iters) showed BIT-
     IDENTICAL downstream E-recovery at every setting: the split-seed GN
     polish, not DK precision, determines which solutions are captured. 24
     keeps a 1.5x margin over the lowest tested setting."""
@@ -270,10 +265,9 @@ def _gj_tail(M: jnp.ndarray) -> jnp.ndarray:
     """(10, 20) constraint matrix -> (10, 10) tail of the Gauss-Jordan
     reduction, i.e. A10^{-1} B10.
 
-    Hand-rolled GJ with partial pivoting instead of jnp.linalg.solve: the
-    batched 10x10 LU dispatch costs ~0.6 ms per 256-sample RANSAC batch on
-    TPU — more than the rest of the reduction combined — while ten
-    elimination steps of elementwise ops vmap cleanly. Row swaps are
+    Hand-rolled GJ with partial pivoting instead of jnp.linalg.solve: ten
+    elimination steps of elementwise ops vmap cleanly, where a batched
+    10x10 LU is a sequence of small dispatches. Row swaps are
     expressed as one-hot blends (no dynamic row gathers under vmap)."""
     Mw = M.at[:, :10].add(1e-10 * jnp.eye(10))  # same mild regularization
     iota = jnp.arange(10)
@@ -420,7 +414,7 @@ def five_point(
         # Gauss-Newton polish of (x, y, z) on the original 10 constraints —
         # recovers the accuracy the f32 GJ reduction + root-finding lost.
         # Iteration budget: the polish is the solver's latency long pole
-        # (sequential fusions over (H*30,) lanes), so iterations are a
+        # (sequential fusions over (H*30,) elements), so iterations are a
         # direct knob. Measured over 400 mixed general/planar minimal sets:
         # best held-out residual > 1e-4 on 10/400 samples at 3 iters vs
         # 8/400 at 4 iters (median 2e-13 both) — the 256-hypothesis RANSAC
@@ -431,9 +425,9 @@ def five_point(
             r = rj[:10]                   # (10,)
             J = rj[10:].reshape(3, 10).T  # (10, 3)
             JtJ = J.T @ J + 1e-9 * jnp.eye(3)
-            # closed-form adjugate solve: batched 3x3 LU on TPU costs ~20x
-            # more than the whole remaining solver (near-double-root
-            # robustness comes from the split seeds, not solver precision)
+            # closed-form adjugate solve instead of a batched 3x3 LU
+            # (near-double-root robustness comes from the split seeds, not
+            # solver precision)
             xyz = xyz - solve3(JtJ, J.T @ r)
 
         E = (
@@ -442,8 +436,8 @@ def five_point(
         norm = jnp.linalg.norm(E)
         # convergence certificate: the closed-form 3x3 solve can blow up on a
         # (near-)singular JtJ (f32 adjugate/det), leaving an unconverged xyz
-        # whose E is arbitrary — on TPU such a candidate once scored as a
-        # universal 'inlier magnet'. Scale-normalized constraint residual
+        # whose E is arbitrary — such a candidate can score as a universal
+        # 'inlier magnet'. Scale-normalized constraint residual
         # must be tiny for a genuinely solved candidate.
         r_fin = jnp.sum(M * monomials(xyz)[None, :], axis=-1)
         scale = 1.0 + jnp.sum(xyz * xyz) ** 1.5
@@ -463,553 +457,3 @@ def five_point(
     seeds = jnp.concatenate([roots, roots + delta, roots - delta])
     Es, converged = jax.vmap(e_from_root)(seeds)  # (30, 3, 3), (30,)
     return Es, jnp.tile(is_real, 3) & converged
-
-
-# ---------------------------------------------------------------------------
-# Batched entry with a Pallas polish kernel
-# ---------------------------------------------------------------------------
-#
-# The root -> E tail (Horner evals, 2x2 solve, 3 GN steps, certificate, E
-# normalization) is the solver's latency long pole under vmap: XLA lowers it
-# to hundreds of small sequential fusions plus tiny batched matmuls, each
-# paying HBM round trips (~0.55 ms of the ~0.95 ms batched solver at B=256).
-# The Pallas kernel below runs the whole tail in VMEM over a
-# (seed-rows=32, hypothesis-lanes) block — one launch, no intermediate HBM.
-
-_SEED_ROWS = 32   # 30 seeds padded to the f32 sublane multiple
-_LANE_TILE = 128  # hypotheses per grid step
-
-
-def _polish_kernel(md_ref, coef_ref, basis_ref, seeds_ref, valid_ref,
-                   es_ref, val_ref):
-    z = seeds_ref[...]                                # (32, T)
-    f32 = z.dtype
-
-    def c(i):  # per-hypothesis scalar row -> broadcast over seed rows
-        return coef_ref[i][None, :]
-
-    def ev4(o):  # ascending deg-3 poly at coef rows o..o+3
-        return ((c(o + 3) * z + c(o + 2)) * z + c(o + 1)) * z + c(o)
-
-    def ev5(o):  # ascending deg-4 poly
-        return (((c(o + 4) * z + c(o + 3)) * z + c(o + 2)) * z
-                + c(o + 1)) * z + c(o)
-
-    # least-squares (x, y) from the three reduced equations (2x2 normal
-    # solve) — identical constants to the XLA path
-    a00, a01 = ev4(0), ev4(4)
-    a10, a11 = ev4(8), ev4(12)
-    a20, a21 = ev4(16), ev4(20)
-    b0, b1, b2 = -ev5(24), -ev5(29), -ev5(34)
-    AtA00 = a00 * a00 + a10 * a10 + a20 * a20 + 1e-12
-    AtA01 = a00 * a01 + a10 * a11 + a20 * a21
-    AtA11 = a01 * a01 + a11 * a11 + a21 * a21 + 1e-12
-    Atb0 = a00 * b0 + a10 * b1 + a20 * b2
-    Atb1 = a01 * b0 + a11 * b1 + a21 * b2
-    det2 = AtA00 * AtA11 - AtA01 * AtA01
-    det2 = jnp.where(jnp.abs(det2) < 1e-20, 1e-20, det2)
-    x = (AtA11 * Atb0 - AtA01 * Atb1) / det2
-    y = (AtA00 * Atb1 - AtA01 * Atb0) / det2
-
-    md = md_ref[...]                                  # (40, 20, T)
-
-    def mono20(x, y, z):
-        one = jnp.ones_like(x)
-        px = [one, x, x * x, x * x * x]
-        py = [one, y, y * y, y * y * y]
-        pz = [one, z, z * z, z * z * z]
-        return [px[i] * py[j] * pz[k] for (i, j, k) in _MONOMIALS]
-
-    def contract(sub, mono):
-        """sum_k md[sub, k, :] (x) mono[k] -> (rows, 32, T); `sub` is a
-        STATIC slice (dynamic row gathers don't vectorize in Mosaic)."""
-        acc = md[sub, 0, :][:, None, :] * mono[0][None]
-        for k in range(1, 20):
-            acc = acc + md[sub, k, :][:, None, :] * mono[k][None]
-        return acc
-
-    # 5 GN steps (vs 3 on the XLA path): in VMEM an extra step costs ~8 us
-    # for the whole batch — the latency argument that capped the XLA path
-    # at 3 does not apply, and marginal planar-twin samples measurably
-    # benefit (the interpret-mode parity test pins per-sample capture)
-    for _ in range(5):
-        mono = mono20(x, y, z)
-        rj = contract(slice(None), mono)              # (40, 32, T)
-        r = rj[0:10]
-        Jx, Jy, Jz = rj[10:20], rj[20:30], rj[30:40]
-        # JtJ (symmetric 3x3) + 1e-9 I, Jtr — same constants as XLA path
-        Axx = jnp.sum(Jx * Jx, axis=0) + 1e-9
-        Axy = jnp.sum(Jx * Jy, axis=0)
-        Axz = jnp.sum(Jx * Jz, axis=0)
-        Ayy = jnp.sum(Jy * Jy, axis=0) + 1e-9
-        Ayz = jnp.sum(Jy * Jz, axis=0)
-        Azz = jnp.sum(Jz * Jz, axis=0) + 1e-9
-        gx = jnp.sum(Jx * r, axis=0)
-        gy = jnp.sum(Jy * r, axis=0)
-        gz = jnp.sum(Jz * r, axis=0)
-        # closed-form adjugate solve (solve3 parity)
-        c00 = Ayy * Azz - Ayz * Ayz
-        c01 = Ayz * Axz - Axy * Azz
-        c02 = Axy * Ayz - Ayy * Axz
-        det = Axx * c00 + Axy * c01 + Axz * c02
-        det = jnp.where(jnp.abs(det) < 1e-20, 1e-20, det)
-        dx = (c00 * gx + c01 * gy + c02 * gz) / det
-        dy = (c01 * gx + (Axx * Azz - Axz * Axz) * gy
-              + (Axz * Axy - Axx * Ayz) * gz) / det
-        dz = (c02 * gx + (Axz * Axy - Axx * Ayz) * gy
-              + (Axx * Ayy - Axy * Axy) * gz) / det
-        x, y, z = x - dx, y - dy, z - dz
-
-    # convergence certificate on the final point (rows 0:10 of MD = M)
-    mono = mono20(x, y, z)
-    rf = contract(slice(0, 10), mono)                 # (10, 32, T)
-    maxr = jnp.max(jnp.abs(rf), axis=0)
-    scale = 1.0 + (x * x + y * y + z * z) ** 1.5
-    finite = jnp.isfinite(x) & jnp.isfinite(y) & jnp.isfinite(z)
-    conv = finite & (maxr < 1e-3 * scale)
-
-    def bs(i):
-        return basis_ref[i][None, :]
-
-    E = [x * bs(k) + y * bs(9 + k) + z * bs(18 + k) + bs(27 + k)
-         for k in range(9)]
-    nrm = jnp.sqrt(sum(e * e for e in E))
-    nrm = jnp.where(nrm < 1e-12, 1e-12, nrm)
-    es_ref[...] = jnp.stack([e / nrm for e in E])     # (9, 32, T)
-    val_ref[...] = (valid_ref[...] * conv.astype(f32))
-
-
-def _gj_polys_body(Mw):
-    """Gauss-Jordan tail + Nistér reduced polynomials for a lane of
-    hypotheses, in VMEM (shared body of the front kernel).
-
-    Same arithmetic as _gj_tail + the row_polys/combine/_det3_polys chain
-    in _reduced_front, with the (B,10,20) -> (B,10,10) -> small-poly
-    pipeline's ~25 sequential XLA fusions collapsed into kernel code.
-    Mw: (10, 20, T) constraint matrices, ALREADY regularized
-    (+1e-10 I on the left block).
-    Returns (coef (40, T): packed [Pk Qk Pl Ql Pm Qm](4 each)
-    [Rk Rl Rm](5 each) + 1 pad row — the polish kernel's poly layout;
-    npoly (11, T): ascending degree-10 polynomial for DK).
-    """
-    T = Mw.shape[2]
-    row = jax.lax.broadcasted_iota(jnp.int32, (10, T), 0)
-
-    for k in range(10):
-        col = Mw[:, k, :]                               # (10, T)
-        cand = jnp.where(row >= k, jnp.abs(col), -1.0)
-        mx = jnp.max(cand, axis=0)                      # (T,)
-        hit = cand == mx[None, :]
-        # first row achieving the max (ties broken low, argmax parity)
-        pidx = jnp.min(jnp.where(hit, row, 10), axis=0)  # (T,)
-        onep = (row == pidx[None, :]).astype(Mw.dtype)   # (10, T)
-        onek = (row == k).astype(Mw.dtype)
-        rp = jnp.sum(onep[:, None, :] * Mw, axis=0)      # (20, T)
-        rk = Mw[k]                                       # (20, T)
-        Mw = (Mw + onek[:, None, :] * (rp - rk)[None, :, :]
-              + onep[:, None, :] * (rk - rp)[None, :, :])
-        piv = rp[k] + onep[k] * (rk[k] - rp[k])          # (T,)
-        piv = jnp.where(jnp.abs(piv) < 1e-20, 1e-20, piv)
-        rowk = Mw[k] / piv[None, :]                      # (20, T)
-        Mw = Mw - Mw[:, k, :][:, None, :] * rowk[None, :, :]
-        Mw = Mw + onek[:, None, :] * rowk[None, :, :]
-
-    tail = Mw[:, 10:, :]                                 # (10, 10, T)
-
-    def row_polys(i):
-        r = tail[i]                                      # (10, T)
-        return ((r[2], r[1], r[0]),          # P ascending, deg 2
-                (r[5], r[4], r[3]),          # Q
-                (r[9], r[8], r[7], r[6]))    # R ascending, deg 3
-
-    zero = jnp.zeros((T,), Mw.dtype)
-
-    def combine(ia, ib):
-        Pa, Qa, Ra = row_polys(ia)
-        Pb, Qb, Rb = row_polys(ib)
-        # <k> = eq(a) - z * eq(b): shift b by one degree and subtract
-        P = (Pa[0], Pa[1] - Pb[0], Pa[2] - Pb[1], zero - Pb[2])
-        Q = (Qa[0], Qa[1] - Qb[0], Qa[2] - Qb[1], zero - Qb[2])
-        R = (Ra[0], Ra[1] - Rb[0], Ra[2] - Rb[1], Ra[3] - Rb[2],
-             zero - Rb[3])
-        return P, Q, R
-
-    Pk, Qk, Rk = combine(4, 5)
-    Pl, Ql, Rl = combine(6, 7)
-    Pm, Qm, Rm = combine(8, 9)
-
-    def pmul(a, b):
-        out = [zero] * (len(a) + len(b) - 1)
-        for i in range(len(a)):
-            for j in range(len(b)):
-                out[i + j] = out[i + j] + a[i] * b[j]
-        return out
-
-    def psub(a, b):
-        n = max(len(a), len(b))
-        a = list(a) + [zero] * (n - len(a))
-        b = list(b) + [zero] * (n - len(b))
-        return [x - y for x, y in zip(a, b)]
-
-    def padd(a, b):
-        n = max(len(a), len(b))
-        a = list(a) + [zero] * (n - len(a))
-        b = list(b) + [zero] * (n - len(b))
-        return [x + y for x, y in zip(a, b)]
-
-    # det = Pk*(Ql Rm - Qm Rl) - Qk*(Pl Rm - Pm Rl) + Rk*(Pl Qm - Pm Ql)
-    m01 = psub(pmul(Ql, Rm), pmul(Qm, Rl))
-    m11 = psub(pmul(Pl, Rm), pmul(Pm, Rl))
-    m21 = psub(pmul(Pl, Qm), pmul(Pm, Ql))
-    det = padd(psub(pmul(Pk, m01), pmul(Qk, m11)), pmul(Rk, m21))
-    det = list(det) + [zero] * (11 - len(det))
-
-    coef = jnp.stack(
-        list(Pk) + list(Qk) + list(Pl) + list(Ql) + list(Pm) + list(Qm)
-        + list(Rk) + list(Rl) + list(Rm) + [zero]
-    )                                                    # (40, T)
-    return coef, jnp.stack(det[:11])                     # (40,T), (11,T)
-
-
-def _sparse_diff_terms():
-    """COO view of _DIFF_MATS for in-kernel MD assembly:
-    terms[a][j] = [(k, val), ...] with (M @ D_a)[:, j] = sum val * M[:, k]."""
-    import numpy as np
-
-    D = np.asarray(_DIFF_MATS)
-    return [
-        [[(k, float(D[a, k, j])) for k in range(20) if D[a, k, j] != 0.0]
-         for j in range(20)]
-        for a in range(3)
-    ]
-
-
-_DIFF_TERMS = _sparse_diff_terms()
-
-
-def _front_kernel(x_ref, basis_ref, md_ref, coef_ref, npoly_ref):
-    """Minimal-sample front end in VMEM: Householder null basis ->
-    constraint matrix (trace-time _Poly expansion on lane vectors) ->
-    MD assembly -> Gauss-Jordan + reduced polynomials.
-
-    Replaces the XLA front (jnp.linalg.qr complete QR + vmapped
-    _constraint_matrix + MD matmuls), whose batched QR and ~2000-op
-    coefficient fusion DAG dominated the solver's remaining latency.
-    The Householder basis differs from LAPACK's by an orthogonal
-    re-mixing of the null space — any orthonormal basis parametrizes the
-    same solution set; per-sample solution capture is what the tests pin.
-
-    x_ref: (20, T) packed [u1(5) v1(5) u2(5) v2(5)] normalized coords.
-    """
-    f32 = x_ref.dtype
-    T = x_ref.shape[1]
-
-    def g(i):
-        return x_ref[i][None, :]                         # (1, T)
-
-    u1 = [g(i) for i in range(5)]
-    v1 = [g(5 + i) for i in range(5)]
-    u2 = [g(10 + i) for i in range(5)]
-    v2 = [g(15 + i) for i in range(5)]
-    one = jnp.ones((1, T), f32)
-
-    # B = A^T as 5 columns of 9 lane-vectors (A: epipolar design rows)
-    cols = [
-        [u2[i] * u1[i], u2[i] * v1[i], u2[i],
-         v2[i] * u1[i], v2[i] * v1[i], v2[i],
-         u1[i], v1[i], one]
-        for i in range(5)
-    ]
-
-    # complete QR via 5 Householder reflections; keep (v, beta) per step
-    refl = []
-    for k in range(5):
-        x = cols[k]
-        sigma = sum(x[i] * x[i] for i in range(k, 9))
-        sgn = jnp.where(x[k] >= 0.0, 1.0, -1.0)
-        alpha = -sgn * jnp.sqrt(sigma + 1e-30)
-        v = [jnp.zeros((1, T), f32)] * k + [x[k] - alpha] + x[k + 1:]
-        vn2 = 2.0 * (sigma - x[k] * alpha) + 1e-30
-        beta = 2.0 / vn2
-        refl.append((v, beta))
-        for j in range(k + 1, 5):
-            c = sum(v[i] * cols[j][i] for i in range(k, 9))
-            cols[j] = [cols[j][i] - beta * c * v[i] for i in range(9)]
-
-    # null-space columns: q_j = H1 ... H5 e_j for j = 5..8
-    nb = []  # 4 basis vectors of 9 lane-vectors
-    for j in range(5, 9):
-        q = [jnp.zeros((1, T), f32)] * 9
-        q[j] = one
-        for k in range(4, -1, -1):
-            v, beta = refl[k]
-            c = sum(v[i] * q[i] for i in range(k, 9))
-            q = [q[i] - beta * c * v[i] for i in range(9)]
-        nb.append(q)
-
-    def as33(q):
-        return [[q[3 * r + c] for c in range(3)] for r in range(3)]
-
-    rows = _constraint_rows(as33(nb[0]), as33(nb[1]), as33(nb[2]),
-                            as33(nb[3]))  # 10 x 20 of (1, T)
-    zero_lane = jnp.zeros((1, T), f32)
-    rows = [[r if hasattr(r, "shape") and r.shape == (1, T) else zero_lane
-             for r in rr] for rr in rows]
-    M = jnp.stack([jnp.concatenate(rr, axis=0) for rr in rows])  # (10,20,T)
-
-    # MD: rows 0:10 = M; rows 10+10a:20+10a = M @ D_a (sparse COO terms)
-    md_rows = [M]
-    for a in range(3):
-        cols_a = []
-        for j in range(20):
-            acc = jnp.zeros((10, T), f32)
-            for (k, val) in _DIFF_TERMS[a][j]:
-                acc = acc + val * M[:, k, :]
-            cols_a.append(acc)
-        md_rows.append(jnp.stack(cols_a, axis=1))        # (10, 20, T)
-    md_ref[...] = jnp.concatenate(md_rows, axis=0)       # (40, 20, T)
-
-    basis_ref[...] = jnp.concatenate(
-        [nb[b][i] for b in range(4) for i in range(9)], axis=0
-    )                                                    # (36, T)
-
-    # regularize the left block (same 1e-10 I as _gj_tail), then GJ+polys
-    eye_rows = jax.lax.broadcasted_iota(jnp.int32, (10, 20), 0)
-    eye_cols = jax.lax.broadcasted_iota(jnp.int32, (10, 20), 1)
-    reg = jnp.where(eye_rows == eye_cols, 1e-10, 0.0).astype(f32)
-    coef, npoly = _gj_polys_body(M + reg[:, :, None])
-    coef_ref[...] = coef
-    npoly_ref[...] = npoly
-
-
-def _dk_kernel(coef_ref, scale_ref, roots_ref, isreal_ref):
-    """Durand-Kerner roots of B monic degree-10 polynomials, one kernel.
-
-    Layout: roots on sublane rows (10 padded to 16), hypotheses on lanes.
-    The XLA version costs ~0.13 ms at B=256 purely in per-op overhead
-    (24 sequential iterations of ~25 complex ops on (B, 10) arrays); in
-    VMEM the same arithmetic is ~25 us. Same constants/semantics as
-    _durand_kerner AFTER its monic normalization + variable rescaling
-    (done in XLA — they are per-polynomial scalars, cheap there).
-    coef_ref: (11, T) rescaled monic ascending coefficients.
-    scale_ref: (1, T) the rescale factor s (roots returned as x * s).
-    """
-    T = coef_ref.shape[1]
-    f32 = coef_ref.dtype
-
-    def c(i):
-        return coef_ref[i][None, :]                     # (1, T)
-
-    row = jax.lax.broadcasted_iota(jnp.int32, (16, T), 0)
-    live = (row < 10).astype(f32)                       # rows 10..15 inert
-
-    # z0 = seed ** (k+1), seed = 0.4 + 0.9j (parity with _durand_kerner)
-    sr, si = 0.4, 0.9
-    zr0, zi0 = [jnp.full((T,), sr, f32)], [jnp.full((T,), si, f32)]
-    for _ in range(9):
-        nr = zr0[-1] * sr - zi0[-1] * si
-        ni = zr0[-1] * si + zi0[-1] * sr
-        zr0.append(nr)
-        zi0.append(ni)
-    zr = jnp.stack(zr0 + [jnp.zeros((T,), f32)] * 6)    # (16, T)
-    zi = jnp.stack(zi0 + [jnp.zeros((T,), f32)] * 6)
-
-    def horner(zr, zi):
-        pr = jnp.broadcast_to(c(10), zr.shape)
-        pi = jnp.zeros_like(zi)
-        for i in range(9, -1, -1):
-            pr, pi = pr * zr - pi * zi + c(i), pr * zi + pi * zr
-        return pr, pi
-
-    def body(_, carry):
-        zr, zi = carry
-        pr, pi = horner(zr, zi)
-        # denom = prod_{j != i} (z_i - z_j): accumulate over the 10 root
-        # rows; the j == i factor is masked to 1 via the row iota
-        dr = jnp.ones_like(zr)
-        di = jnp.zeros_like(zi)
-        for j in range(10):
-            wr = zr - zr[j][None, :]
-            wi = zi - zi[j][None, :]
-            mask = (row == j)
-            wr = jnp.where(mask, 1.0, wr)
-            wi = jnp.where(mask, 0.0, wi)
-            dr, di = dr * wr - di * wi, dr * wi + di * wr
-        den = dr * dr + di * di + 1e-20
-        # z -= p/denom (complex division via conjugate)
-        zr = zr - (pr * dr + pi * di) / den
-        zi = zi - (pi * dr - pr * di) / den
-        # keep the inert pad rows fixed at 0 (they would otherwise wander)
-        return zr * live, zi * live
-
-    zr, zi = jax.lax.fori_loop(0, 24, body, (zr, zi))
-
-    # 3 real-Newton polish steps on Re(z) (parity with _durand_kerner)
-    x = zr
-    for _ in range(3):
-        pr, _ = horner(x, jnp.zeros_like(x))
-        dacc = jnp.broadcast_to(10.0 * c(10), x.shape)
-        for i in range(9, 0, -1):
-            dacc = dacc * x + float(i) * c(i)
-        x = x - pr / (dacc + 1e-12)
-
-    is_real = (jnp.abs(zi) < 0.5 * (jnp.abs(zr) + 1.0)) & jnp.isfinite(x)
-    roots_ref[...] = x * scale_ref[0][None, :]
-    isreal_ref[...] = is_real.astype(f32) * live
-
-
-def _dk_roots_batch(n_poly: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(B, 11) ascending coefficients -> ((B, 10) real roots, (B, 10) mask)
-    via the Pallas DK kernel (monic normalization + rescaling in XLA)."""
-    B = n_poly.shape[0]
-    lead = n_poly[:, 10]
-    lead = jnp.where(jnp.abs(lead) < 1e-12, 1e-12, lead)
-    c = n_poly / lead[:, None]
-    k = jnp.arange(10, dtype=jnp.float32)
-    mag = jnp.maximum(jnp.abs(c[:, :10]), 1e-30)
-    s = jnp.clip(jnp.max(mag ** (1.0 / (10.0 - k))[None, :], axis=1),
-                 1e-3, 1e6)
-    c = c * jnp.exp(
-        (jnp.arange(11, dtype=jnp.float32)[None, :] - 10.0)
-        * jnp.log(s)[:, None]
-    )
-
-    Bp = -(-B // _LANE_TILE) * _LANE_TILE
-    coefT = jnp.pad(c, ((0, Bp - B), (0, 0))).T          # (11, Bp)
-    scaleT = jnp.pad(s, (0, Bp - B))[None, :]            # (1, Bp)
-    T = _LANE_TILE
-    roots, isreal = pl.pallas_call(
-        _dk_kernel,
-        grid=(Bp // T,),
-        in_specs=[
-            pl.BlockSpec((11, T), lambda i: (0, i)),
-            pl.BlockSpec((1, T), lambda i: (0, i)),
-        ],
-        out_specs=[
-            pl.BlockSpec((16, T), lambda i: (0, i)),
-            pl.BlockSpec((16, T), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((16, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((16, Bp), jnp.float32),
-        ],
-        interpret=interpret_mode(),
-    )(coefT, scaleT)
-    return roots[:10, :B].T, isreal[:10, :B].T > 0.5
-
-
-def _five_point_batch_pallas(
-    x1: jnp.ndarray, x2: jnp.ndarray
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(B,5,2)x2 -> ((B,30,3,3), (B,30)); three Pallas kernels — front
-    (Householder null basis + constraint matrix + MD + GJ + reduced
-    polynomials), DK roots, GN polish. Same per-seed arithmetic/constants
-    as five_point except the null-space basis (Householder vs LAPACK QR:
-    same space, different orthonormal basis — same solution set)."""
-    B = x1.shape[0]
-
-    Bp = -(-B // _LANE_TILE) * _LANE_TILE  # pad hypotheses to the lane tile
-    T = _LANE_TILE
-
-    def pad_b(a):
-        return jnp.pad(a, [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1))
-
-    # front kernel input: (20, Bp) packed [u1(5) v1(5) u2(5) v2(5)]
-    xs = jnp.concatenate(
-        [x1[:, :, 0], x1[:, :, 1], x2[:, :, 0], x2[:, :, 1]], axis=1
-    )                                                        # (B, 20)
-    xsT = pad_b(xs).T                                        # (20, Bp)
-    basisT, mdT, coefT, npolyT = pl.pallas_call(
-        _front_kernel,
-        grid=(Bp // T,),
-        in_specs=[pl.BlockSpec((20, T), lambda i: (0, i))],
-        out_specs=[
-            pl.BlockSpec((36, T), lambda i: (0, i)),
-            pl.BlockSpec((40, 20, T), lambda i: (0, 0, i)),
-            pl.BlockSpec((40, T), lambda i: (0, i)),
-            pl.BlockSpec((11, T), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((36, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((40, 20, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((40, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((11, Bp), jnp.float32),
-        ],
-        interpret=interpret_mode(),
-    )(xsT)
-
-    roots, is_real = _dk_roots_batch(npolyT[:, :B].T)
-    delta = 0.01 * (jnp.abs(roots) + 1.0)
-    seeds = jnp.concatenate(
-        [roots, roots + delta, roots - delta], axis=1
-    )  # (B, 30)
-    svalid = jnp.tile(is_real, (1, 3)).astype(jnp.float32)
-
-    seedsT = jnp.pad(pad_b(seeds), ((0, 0), (0, 2))).T       # (32, Bp)
-    validT = jnp.pad(pad_b(svalid), ((0, 0), (0, 2))).T      # (32, Bp)
-
-    grid = (Bp // _LANE_TILE,)
-    es, val = pl.pallas_call(
-        _polish_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((40, 20, T), lambda i: (0, 0, i)),
-            pl.BlockSpec((40, T), lambda i: (0, i)),
-            pl.BlockSpec((36, T), lambda i: (0, i)),
-            pl.BlockSpec((_SEED_ROWS, T), lambda i: (0, i)),
-            pl.BlockSpec((_SEED_ROWS, T), lambda i: (0, i)),
-        ],
-        out_specs=[
-            pl.BlockSpec((9, _SEED_ROWS, T), lambda i: (0, 0, i)),
-            pl.BlockSpec((_SEED_ROWS, T), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((9, _SEED_ROWS, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((_SEED_ROWS, Bp), jnp.float32),
-        ],
-        interpret=interpret_mode(),
-    )(mdT, coefT, basisT, seedsT, validT)
-
-    Es = es[:, :30, :B].transpose(2, 1, 0).reshape(B, 30, 3, 3)
-    valid = val[:30, :B].T > 0.5
-    return Es, valid
-
-
-_KERNEL_OK = None  # lazily probed: do the 5pt kernels compile on this chip?
-
-
-def _kernel_path_available() -> bool:
-    """One-time compile probe of the 5pt Pallas pipeline on the real TPU.
-
-    Mosaic lowering failures surface at COMPILE time inside whatever jit
-    first traces the solver — which would take the whole session/bench
-    down. Probing a tiny standalone compile once (and caching the answer)
-    turns a kernel regression into a logged fallback to the vmap path
-    instead of a crash."""
-    global _KERNEL_OK
-    if _KERNEL_OK is None:
-        try:
-            d = jnp.zeros((2, 5, 2), jnp.float32)
-            jax.block_until_ready(
-                jax.jit(_five_point_batch_pallas)(d, d + 1.0)[0]
-            )
-            _KERNEL_OK = True
-        except Exception as e:  # pragma: no cover - hardware-dependent
-            import warnings
-
-            warnings.warn(
-                f"5pt Pallas kernels unavailable, using vmap path: {e!r}"
-            )
-            _KERNEL_OK = False
-    return _KERNEL_OK
-
-
-def five_point_batch(
-    x1: jnp.ndarray, x2: jnp.ndarray
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched 5-point solver: (B,5,2)x2 -> ((B,30,3,3), (B,30))."""
-    if interpret_mode():
-        return _five_point_batch_pallas(x1, x2)
-    if use_pallas() and _kernel_path_available():
-        return _five_point_batch_pallas(x1, x2)
-    return jax.vmap(five_point)(x1, x2)

@@ -5,12 +5,11 @@ resection (Reconstructor.hpp:306) and map localization (Localizer.hpp:93).
 Ke's CVPR17 solver is rotation-algebraic; here we use the classical Grunert
 formulation because it reduces to (a) a quartic whose coefficients come from
 pure polynomial arithmetic and (b) a 3-point Horn alignment — both of which
-batch/vmap cleanly on TPU with no data-dependent branching.
+batch/vmap cleanly with no data-dependent branching.
 
 The quartic is solved in closed form (Ferrari resolvent, branchless via
 discriminant selects) + 2 Newton polish steps — no iterative root finder
-(24 sequential Durand-Kerner steps cost more than the rest of the solver on
-TPU), no nonsymmetric eigensolve (unsupported on TPU).
+and no nonsymmetric eigensolve.
 
 Each minimal sample yields up to 4 pose candidates with a validity mask; the
 RANSAC harness scores all of them.
@@ -44,8 +43,8 @@ def _quartic_real_roots(coeffs: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     solved with both the trigonometric (three-real-root) and Cardano
     (one-real-root) formulas and the discriminant selects; quadratic factors
     with negative discriminants mark their root pair invalid. Replaces a
-    24-step Durand-Kerner fori_loop — 24 sequential tiny complex ops cost
-    more wall-clock on TPU than the whole remaining solver — and keeps the
+    24-step Durand-Kerner fori_loop — 24 sequential tiny complex ops — and
+    keeps the
     same 2-step Newton polish to shave the f32 formula noise.
     """
     lead = coeffs[4]
@@ -139,8 +138,8 @@ def _horn_3pt(P: jnp.ndarray, X: jnp.ndarray) -> Pose:
     Triad construction, no SVD: P3P distances satisfy the inter-point
     distance constraints by construction, so the two 3-point clouds are
     exactly congruent and R = triad(X) @ triad(P)^T is exact. (The SVD-based
-    Kabsch alignment costs ~1000 batched tiny SVDs per RANSAC call on TPU —
-    this is the hot path of absolute-pose RANSAC.)
+    Kabsch alignment costs ~1000 batched tiny SVDs per RANSAC call — this
+    is the hot path of absolute-pose RANSAC.)
     """
     A = _triad(P[0], P[1], P[2])
     B = _triad(X[0], X[1], X[2])
@@ -210,261 +209,3 @@ def p3p_grunert(
 
 
 p3p_grunert_batch = jax.vmap(p3p_grunert)
-
-
-# ---------------------------------------------------------------------------
-# Batched flats entry with a Pallas kernel (absolute-pose RANSAC hot path)
-# ---------------------------------------------------------------------------
-#
-# Under vmap the whole solver is hundreds of SEQUENTIAL (B,)-shaped scalar
-# fusions (quartic coefficients, Ferrari, four Horn alignments), each paying
-# an HBM round trip — the same disease the 5-point polish kernel fixes
-# (geometry/fivept.py). The kernel below runs one minimal sample per lane
-# with every intermediate in VMEM, and hoists the root-independent world
-# triad out of the per-root loop (the vmap path recomputes it 4x).
-
-_P3P_LANES = 128
-
-
-def _acos_poly(x):
-    """arccos without the acos primitive (no Pallas TPU lowering exists).
-
-    Abramowitz & Stegun 4.4.45: acos(x) ~= sqrt(1-x) * poly(x) on [0, 1],
-    |err| <= 5e-5 rad, extended to [-1, 0] by acos(-x) = pi - acos(x).
-    Only feeds the trig-branch seed of the resolvent cubic, whose two
-    Newton iterations absorb the approximation error.
-    """
-    ax = jnp.abs(x)
-    p = ((-0.0187293 * ax + 0.0742610) * ax - 0.2121144) * ax + 1.5707288
-    r = jnp.sqrt(jnp.maximum(1.0 - ax, 0.0)) * p
-    return jnp.where(x < 0.0, jnp.float32(jnp.pi) - r, r)
-
-
-def _p3p_kernel(xw_ref, br_ref, flat_ref, valid_ref):
-    f32 = xw_ref.dtype
-
-    def g(ref, i):
-        return ref[i][None, :]                      # (1, T)
-
-    P = [[g(xw_ref, 3 * i + j) for j in range(3)] for i in range(3)]
-    F = [[g(br_ref, 3 * i + j) for j in range(3)] for i in range(3)]
-
-    def sub(a, b):
-        return [a[k] - b[k] for k in range(3)]
-
-    def dot(a, b):
-        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-    def cross(a, b):
-        return [a[1] * b[2] - a[2] * b[1],
-                a[2] * b[0] - a[0] * b[2],
-                a[0] * b[1] - a[1] * b[0]]
-
-    def scale(a, s):
-        return [a[k] * s for k in range(3)]
-
-    def unit(a):
-        n = jnp.sqrt(dot(a, a)) + 1e-12
-        return [a[k] / n for k in range(3)]
-
-    def triad(p1, p2, p3):
-        u1 = unit(sub(p2, p1))
-        u2 = unit(cross(u1, sub(p3, p1)))
-        u3 = cross(u1, u2)
-        return u1, u2, u3                           # columns
-
-    a2 = dot(sub(P[1], P[2]), sub(P[1], P[2]))
-    b2 = jnp.maximum(dot(sub(P[0], P[2]), sub(P[0], P[2])), 1e-12)
-    c2 = dot(sub(P[0], P[1]), sub(P[0], P[1]))
-    cos_a = dot(F[1], F[2])
-    cos_b = dot(F[0], F[2])
-    cos_g = dot(F[0], F[1])
-    ab = a2 / b2
-    cb = c2 / b2
-
-    # same N/D/K1 polynomial construction as p3p_grunert, degree-expanded
-    N0, N1, N2 = -(1.0 + ab - cb), 2.0 * cos_b * (ab - cb), (1.0 - ab + cb)
-    D0, D1 = -2.0 * cos_g, 2.0 * cos_a
-    K0, K1c, K2 = (1.0 - cb), 2.0 * cb * cos_b, -cb
-
-    NN = [N0 * N0, 2 * N0 * N1, N1 * N1 + 2 * N0 * N2, 2 * N1 * N2, N2 * N2]
-    ND = [N0 * D0, N0 * D1 + N1 * D0, N1 * D1 + N2 * D0, N2 * D1]
-    DD = [D0 * D0, 2 * D0 * D1, D1 * D1]
-    KDD = [K0 * DD[0], K0 * DD[1] + K1c * DD[0],
-           K0 * DD[2] + K1c * DD[1] + K2 * DD[0],
-           K1c * DD[2] + K2 * DD[1], K2 * DD[2]]
-    q = [NN[0] - 2.0 * cos_g * ND[0] + KDD[0],
-         NN[1] - 2.0 * cos_g * ND[1] + KDD[1],
-         NN[2] - 2.0 * cos_g * ND[2] + KDD[2],
-         NN[3] - 2.0 * cos_g * ND[3] + KDD[3],
-         NN[4] + KDD[4]]
-
-    # Ferrari closed form — constant-for-constant _quartic_real_roots parity
-    lead = q[4]
-    lead = jnp.where(jnp.abs(lead) < 1e-20, 1e-20, lead)
-    c = [qq / lead for qq in q]
-    a3q, a2q, a1q, a0q = c[3], c[2], c[1], c[0]
-    sh = a3q / 4.0
-    p = a2q - 3.0 * a3q * a3q / 8.0
-    qd = a1q - a3q * a2q / 2.0 + a3q ** 3 / 8.0
-    r = (a0q - a3q * a1q / 4.0 + a3q * a3q * a2q / 16.0
-         - 3.0 * a3q ** 4 / 256.0)
-    cbq = p
-    ccq = p * p / 4.0 - r
-    cdq = -qd * qd / 8.0
-    Pq = ccq - cbq * cbq / 3.0
-    Qq = cdq - cbq * ccq / 3.0 + 2.0 * cbq ** 3 / 27.0
-    disc = (Qq / 2.0) ** 2 + (Pq / 3.0) ** 3
-    Pn = jnp.minimum(Pq, -1e-20)
-    theta = _acos_poly(jnp.clip(
-        (3.0 * Qq) / (2.0 * Pn) * jnp.sqrt(-3.0 / Pn), -1.0, 1.0))
-    w_trig = 2.0 * jnp.sqrt(-Pn / 3.0) * jnp.cos(theta / 3.0)
-    sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-
-    def cbrt(x):
-        return jnp.sign(x) * jnp.abs(x) ** (1.0 / 3.0)
-
-    w = jnp.where(disc > 0.0,
-                  cbrt(-Qq / 2.0 + sq) + cbrt(-Qq / 2.0 - sq), w_trig)
-    m = w - cbq / 3.0
-    for _ in range(2):
-        f_m = ((m + cbq) * m + ccq) * m + cdq
-        df_m = (3.0 * m + 2.0 * cbq) * m + ccq
-        m = m - f_m / jnp.where(jnp.abs(df_m) < 1e-12, 1e-12, df_m)
-    m = jnp.maximum(m, 0.0)
-    s = jnp.sqrt(2.0 * m + 1e-20)
-    half = (p + 2.0 * m) / 2.0
-    qs = qd / (2.0 * s)
-    A4 = half - qs
-    B4 = half + qs
-    dA = s * s - 4.0 * A4
-    dB = s * s - 4.0 * B4
-    rA = jnp.sqrt(jnp.maximum(dA, 0.0))
-    rB = jnp.sqrt(jnp.maximum(dB, 0.0))
-    roots_y = [(-s + rA) / 2.0, (-s - rA) / 2.0,
-               (s + rB) / 2.0, (s - rB) / 2.0]
-    tol = 1e-3 * (1.0 + s * s + jnp.abs(half) + jnp.abs(qs))
-    realness = [dA > -tol, dA > -tol, dB > -tol, dB > -tol]
-
-    def poly4(v):
-        return ((((v + c[3]) * v + c[2]) * v + c[1]) * v) + c[0]
-
-    def dpoly4(v):
-        return ((4.0 * v + 3.0 * c[3]) * v + 2.0 * c[2]) * v + c[1]
-
-    # root-independent pieces of the Horn alignment, hoisted
-    A1, A2, A3 = triad(P[0], P[1], P[2])        # world triad columns
-    meanP = [(P[0][k] + P[1][k] + P[2][k]) / 3.0 for k in range(3)]
-
-    flat_rows = []
-    valid_rows = []
-    for ridx in range(4):
-        x = roots_y[ridx] - sh
-        for _ in range(2):
-            x = x - poly4(x) / (dpoly4(x) + 1e-12)
-        is_real = realness[ridx] & jnp.isfinite(x)
-        v = x
-        Nv = (N2 * v + N1) * v + N0
-        Dv = D1 * v + D0
-        u = Nv / jnp.where(jnp.abs(Dv) < 1e-9, 1e-9, Dv)
-        s1sq = b2 / jnp.maximum(1.0 + v * v - 2.0 * v * cos_b, 1e-12)
-        s1 = jnp.sqrt(s1sq)
-        s2 = u * s1
-        s3 = v * s1
-        X1, X2, X3 = scale(F[0], s1), scale(F[1], s2), scale(F[2], s3)
-        B1, B2, B3 = triad(X1, X2, X3)          # camera triad columns
-        # R = sum_k b_k a_k^T (triads are exact congruent frames)
-        R = [[B1[i] * A1[j] + B2[i] * A2[j] + B3[i] * A3[j]
-              for j in range(3)] for i in range(3)]
-        meanX = [(X1[k] + X2[k] + X3[k]) / 3.0 for k in range(3)]
-        # C = meanP - R^T meanX
-        C = [meanP[j] - (R[0][j] * meanX[0] + R[1][j] * meanX[1]
-                         + R[2][j] * meanX[2]) for j in range(3)]
-        flat_rows += [R[i][j] for i in range(3) for j in range(3)] + C
-        ok = (v > 0) & (u > 0) & (s1 > 0) & is_real
-        valid_rows.append(ok.astype(f32))
-
-    flat_ref[...] = jnp.concatenate(flat_rows, axis=0)       # (48, T)
-    valid_ref[...] = jnp.concatenate(
-        valid_rows + [jnp.zeros_like(valid_rows[0])] * 4, axis=0
-    )                                                        # (8, T)
-
-
-def _p3p_flats_pallas(
-    X_world: jnp.ndarray, bearings: jnp.ndarray
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(B,3,3)x2 -> ((B,4,12) row-major R|C flats, (B,4) valid)."""
-    B = X_world.shape[0]
-    from coloc_tpu.ops.dispatch import interpret_mode
-    from jax.experimental import pallas as pl
-
-    Bp = -(-B // _P3P_LANES) * _P3P_LANES
-    T = _P3P_LANES
-
-    def pad_b(a):
-        return jnp.pad(a.reshape(B, 9),
-                       ((0, Bp - B), (0, 0))).T              # (9, Bp)
-
-    flats, valid = pl.pallas_call(
-        _p3p_kernel,
-        grid=(Bp // T,),
-        in_specs=[
-            pl.BlockSpec((9, T), lambda i: (0, i)),
-            pl.BlockSpec((9, T), lambda i: (0, i)),
-        ],
-        out_specs=[
-            pl.BlockSpec((48, T), lambda i: (0, i)),
-            pl.BlockSpec((8, T), lambda i: (0, i)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((48, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((8, Bp), jnp.float32),
-        ],
-        interpret=interpret_mode(),
-    )(pad_b(X_world), pad_b(bearings))
-    flats_b = flats[:, :B].T.reshape(B, 4, 12)
-    return flats_b, valid[:4, :B].T > 0.5
-
-
-_KERNEL_OK = None
-
-
-def _kernel_path_available() -> bool:
-    """One-time compile probe (same rationale as fivept's)."""
-    global _KERNEL_OK
-    if _KERNEL_OK is None:
-        try:
-            d = jnp.zeros((2, 3, 3), jnp.float32)
-            jax.block_until_ready(
-                jax.jit(_p3p_flats_pallas)(d, d + 0.5)[0]
-            )
-            _KERNEL_OK = True
-        except Exception as e:  # pragma: no cover - hardware-dependent
-            import warnings
-
-            warnings.warn(
-                f"P3P Pallas kernel unavailable, using vmap path: {e!r}"
-            )
-            _KERNEL_OK = False
-    return _KERNEL_OK
-
-
-def p3p_flats_batch(
-    X_world: jnp.ndarray, bearings: jnp.ndarray
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Batched Grunert P3P emitting RANSAC-ready (B,4,12) pose flats."""
-    from coloc_tpu.ops.dispatch import interpret_mode, use_pallas
-
-    if interpret_mode():
-        return _p3p_flats_pallas(X_world, bearings)
-    if use_pallas() and _kernel_path_available():
-        return _p3p_flats_pallas(X_world, bearings)
-
-    def one(Xs, bs):
-        poses, valid = p3p_grunert(Xs, bs)
-        flat = jnp.concatenate(
-            [poses.R.reshape(4, 9), poses.C.reshape(4, 3)], axis=1
-        )
-        return flat, valid
-
-    return jax.vmap(one)(X_world, bearings)

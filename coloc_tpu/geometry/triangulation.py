@@ -5,7 +5,7 @@ Reconstructor.hpp:225 (two-view bootstrap, gates depth>0 and |Z|<100) and
 :378-380 (resection-time triangulation, gates ray angle > 2 deg, depth > 0,
 |Z| < 1000); chirality testing in RobustMatcher.hpp:70-72.
 
-TPU-first: the per-track host loop becomes one vmapped 4x4 symmetric
+Device shape: the per-track host loop becomes one vmapped 4x4 symmetric
 eigensolve per track (smallest eigenvector of A^T A), all in normalized
 (undistorted, unit-focal) coordinates for f32 conditioning.
 """

@@ -7,8 +7,10 @@ Reference parity:
     `w,h`, then per-drone 9 values of K (row-major), then per-drone 3 radial
     distortion values.
 
-Host-side on purpose: PNG decode and filename logic stay off-device
+Host-side on purpose: image decode and filename logic stay off-device
 (SURVEY.md §7.4.6 — keep the per-frame device round-trip count at ~1).
+Binary PGM (P5) is read and written with numpy alone; PNG and JPEG (real
+datasets) go through Pillow.
 """
 
 from __future__ import annotations
@@ -23,10 +25,45 @@ def frame_path(folder: str, drone: int, frame: int, ext: str = "png") -> str:
     return os.path.join(folder, f"img__Quad{drone}_{frame:04d}.{ext}")
 
 
+def write_pgm(path: str, image: np.ndarray) -> None:
+    """Write a grayscale image as 8-bit binary PGM (P5), values clipped to
+    [0, 255] and truncated like a uint8 cast."""
+    img = np.clip(np.asarray(image), 0, 255).astype(np.uint8)
+    h, w = img.shape
+    with open(path, "wb") as fh:
+        fh.write(f"P5\n{w} {h}\n255\n".encode("ascii"))
+        fh.write(img.tobytes())
+
+
+def read_pgm(path: str) -> np.ndarray:
+    """8-bit binary PGM (P5) -> (H, W) uint8 array."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    fields, pos = [], 0
+    while len(fields) < 4:
+        while data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":            # comment to end of line
+            pos = data.index(b"\n", pos)
+            continue
+        end = pos
+        while not data[end:end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    w, h, maxval = (int(f) for f in fields[1:])
+    if fields[0] != b"P5" or maxval > 255:
+        raise ValueError(f"{path}: not an 8-bit binary PGM")
+    pix = np.frombuffer(data, np.uint8, count=w * h, offset=pos + 1)
+    return pix.reshape(h, w)
+
+
 def load_image(path: str) -> np.ndarray:
     """Grayscale float32 (H, W) in [0, 255]."""
     if path.endswith(".npy"):
         img = np.load(path)
+    elif path.endswith(".pgm"):
+        img = read_pgm(path)
     else:
         from PIL import Image
 
@@ -35,7 +72,7 @@ def load_image(path: str) -> np.ndarray:
 
 
 def load_frame(folder: str, drone: int, frame: int) -> np.ndarray:
-    for ext in ("png", "pgm", "npy", "jpg"):
+    for ext in ("pgm", "png", "npy", "jpg"):
         p = frame_path(folder, drone, frame, ext)
         if os.path.exists(p):
             return load_image(p)

@@ -2,12 +2,14 @@
 
 Reference parity: the reference ingests frames with native C++ (OpenCV
 imread, GPUDetector.hpp:161) synchronously; `coloc_tpu/native/loader.cpp`
-is the TPU build's native ingest — PNG (zlib) / PGM decode plus an
+is this framework's native ingest — PNG (zlib) / PGM decode plus an
 asynchronous multi-threaded prefetcher so host decode overlaps device
 compute.
 
-Auto-builds the shared library on first use (g++ + zlib, both in the image);
-falls back to the PIL-based python path if the toolchain is unavailable.
+Runs `make` on the first load of each process (g++ + zlib), which rebuilds
+the shared library from the committed sources whenever they are newer;
+callers fall back to the python path (io/disk) if the toolchain is
+unavailable.
 """
 
 from __future__ import annotations
@@ -32,15 +34,16 @@ def _load_library() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR],
-                    check=True, capture_output=True, timeout=120,
-                )
-            except Exception:
-                _build_failed = True
-                return None
+        # make on every first load: it rebuilds the library whenever the
+        # committed sources are newer, so a stale copied .so never loads
+        try:
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR],
+                check=True, capture_output=True, timeout=120,
+            )
+        except Exception:
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)
         except OSError:

@@ -1,7 +1,8 @@
 """Synthetic multi-drone dataset generator.
 
 The reference is driven by recorded image sequences on disk
-(`img__Quad{id}_{frame:04d}.png`, InterfaceDisk.hpp:13-14). For tests and
+(`img__Quad{id}_{frame:04d}.png`, InterfaceDisk.hpp:13-14); the generator
+writes the same names as binary PGM. For tests and
 benchmarks without dataset downloads (zero-egress environment) we generate
 photometrically-consistent multi-view sequences: textured 3D planes (a
 fenestrated near plane over a far plane) rendered with exact projective
@@ -123,9 +124,10 @@ def trajectory(num_frames: int, drone: int, seed: int = 7):
 def write_dataset(
     folder: str, scene: SyntheticScene, num_drones: int, num_frames: int,
 ) -> dict:
-    """Write `img__Quad{id}_{frame:04d}.png` sequences (InterfaceDisk parity)
-    + ground-truth poses. Returns {'Rs': (D,F,3,3), 'Cs': (D,F,3)}."""
-    from PIL import Image
+    """Write `img__Quad{id}_{frame:04d}.pgm` sequences (InterfaceDisk
+    naming, binary PGM so no image library is needed) + ground-truth poses.
+    Returns {'Rs': (D,F,3,3), 'Cs': (D,F,3)}."""
+    from coloc_tpu.io import disk
 
     os.makedirs(folder, exist_ok=True)
     gt_R = np.zeros((num_drones, num_frames, 3, 3), np.float32)
@@ -133,10 +135,8 @@ def write_dataset(
     for d in range(num_drones):
         Rs, Cs = trajectory(num_frames, d)
         for f in range(num_frames):
-            img = render(scene, Rs[f], Cs[f])
-            Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(folder, f"img__Quad{d}_{f:04d}.png")
-            )
+            disk.write_pgm(disk.frame_path(folder, d, f, "pgm"),
+                           render(scene, Rs[f], Cs[f]))
             gt_R[d, f] = Rs[f]
             gt_C[d, f] = Cs[f]
     np.savez(os.path.join(folder, "groundtruth.npz"), Rs=gt_R, Cs=gt_C)
@@ -154,8 +154,8 @@ def consistent_mapdb(feats, K: np.ndarray, num_landmarks: int,
     convergent P3P+LM path (a map whose 3D points contradict the matches
     makes LM burn its full reject budget instead — unrepresentative of
     per-frame localization against a real map). ONE recipe for every bench
-    and profiling script (bench.py main/_bench_akaze/_bench_capacity/
-    _bench_map_scaling, scripts/prof_*.py)."""
+    (bench.py main/_bench_akaze/_bench_capacity/_bench_map_scaling) and
+    chip_smoke.py's serving map."""
     from coloc_tpu.types import MapDB
 
     kp = int(feats.xy.shape[0])

@@ -2,7 +2,7 @@
 
 BASELINE.md's accuracy target ("pose error within 1% of the reference on
 EuRoC/KITTI sequences") needs a trajectory-level metric the moment real data
-is present (VERDICT r2 item 7). These are the standard SLAM benchmark
+is present. These are the standard SLAM benchmark
 definitions (Sturm et al., IROS 2012):
 
   ATE: align the estimated trajectory to ground truth with a similarity

@@ -1,8 +1,6 @@
-"""Compute kernels (Pallas + XLA reference paths).
+"""Compute ops: plain XLA implementations, plus the Hamming 2-NN Pallas
+kernel (Triton route) that runs on the GPU (ops/hamming.py).
 
-Every op exposes a pure-XLA reference implementation and, where it pays, a
-Pallas TPU kernel. Dispatch is runtime (coloc_tpu.ops.dispatch), replacing the
-reference's compile-time #ifdef USE_CUDA backend split (CMakeLists.txt:9-11).
+The backend alone chooses a path, replacing the reference's compile-time
+#ifdef USE_CUDA backend split (CMakeLists.txt:9-11).
 """
-
-from coloc_tpu.ops.dispatch import use_pallas, interpret_mode  # noqa: F401

@@ -5,16 +5,15 @@ Reference parity: CLATCH (src/CLATCH.cu) computes 512-bit LATCH — per
 keypoint, a rotated 64x64 ROI and 512 patch-triplet SSD comparisons against a
 learned triplet table, one CUDA block per keypoint. We keep the *semantics*
 (oriented triplet comparisons -> sign bits -> 512-bit binary string matched
-under Hamming margin) but redesign for TPU:
+under Hamming margin) but redesign for fixed-shape device code:
 
   - Patch SSDs become point samples on a box-pre-smoothed pyramid level
     (smoothing ≈ patch aggregation, the steered-BRIEF/ORB trick).
   - Like LATCH's patch reuse, triplets draw from a shared POOL of sample
     points: only `POOL_SIZE` rotated samples are taken per keypoint, and the
     512 triplets index into that pool with a static table. Samples come from
-    per-keypoint patches via one-hot MXU contraction (ops/patches.py) —
-    elementwise gathers are XLA's slow path on TPU; triplet comparisons on
-    the sampled (K, P) matrix are pure VPU work.
+    per-keypoint patches via one-hot contraction (ops/patches.py);
+    triplet comparisons on the sampled (K, P) matrix are elementwise.
   - The pool and triplet tables are generated from a fixed PRNG seed (not the
     learned LATCH table — deliberately not copied from the reference); pool
     points live in a disc of radius 24 px matching LATCH's spatial support.
@@ -90,7 +89,7 @@ def describe_from_patches(
 
     Nearest sampling: the pool reads a box-smoothed pyramid, so the <=0.5px
     rounding is well below the smoothing scale. Samples route through the
-    one-hot MXU path (ops/patches.py) instead of elementwise gathers.
+    one-hot path (ops/patches.py) instead of elementwise gathers.
     """
     pool = jnp.asarray(_POOL)                              # (P, 2)
 

@@ -4,9 +4,8 @@ Reference parity: the OpenMVG AKAZE path (CPUDetector.hpp + AKAZE.hpp) builds
 a nonlinear scale space by Fast Explicit Diffusion: octaves of evolution
 levels where image structure diffuses everywhere EXCEPT across strong edges
 (Perona-Malik conductivity), then detects scale-space extrema of the Hessian
-determinant. This module implements the numeric backbone TPU-first: every FED
-step is a 5-point stencil over the whole image (pure VPU work, fused by XLA),
-with trace-static FED cycle lengths.
+determinant. Every FED step here is a 5-point stencil over the whole image
+(elementwise work that XLA fuses), with trace-static FED cycle lengths.
 
 Conventions follow the standard KAZE/AKAZE formulation:
   - conductivity g2 = 1 / (1 + |grad L|^2 / k^2) (Perona-Malik).
@@ -19,16 +18,11 @@ Conventions follow the standard KAZE/AKAZE formulation:
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from coloc_tpu.ops.dispatch import interpret_mode, use_pallas
 
 
 class Evolution(NamedTuple):
@@ -70,9 +64,8 @@ def contrast_factor(
 
     OpenMVG/KAZE parity (Compute_Contrast_Factor): a 300-bin histogram of
     gradient magnitudes, k = hmax * b / nbins at the first bin b whose
-    cumulative count reaches the percentile. The histogram form is also the
-    TPU-native choice: a full-sort `jnp.quantile` over the image costs
-    ~0.7 ms at 752x480 on v5e, the fused compare-reduce histogram ~0.1 ms.
+    cumulative count reaches the percentile, found by a binary search of
+    compare-reduce passes rather than a full sort.
     """
     gx, gy = _scharr(image)
     mag = jnp.sqrt(gx * gx + gy * gy)
@@ -150,214 +143,6 @@ def _hessian_response(L: jnp.ndarray, sigma_px: float):
     # scales as sigma^4
 
 
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel: one whole octave of FED cycles in VMEM
-# ---------------------------------------------------------------------------
-#
-# The XLA path dispatches every FED step (and every per-level Hessian
-# Scharr pass) as its own fused stencil over HBM — ~2.0 ms/frame at the 4x4
-# preset on v5e, of which ~1.2 ms is the per-level Hessian/derivative
-# stencils alone. The kernel runs an octave's full evolution (4 cycles:
-# Scharr -> conductivity -> FED steps) AND the per-sublevel outputs (Lx, Ly,
-# sigma^4-normalized Hessian determinant) on a row band held in VMEM, so L
-# round-trips HBM once per OCTAVE instead of once per stencil pass. The
-# post-cycle Scharr is shared: it is both sublevel s's (Lx, Ly) output and
-# cycle s+1's conductivity gradient (exactly as in the XLA path, where both
-# are Scharr of the same L). Per-step edge semantics are preserved exactly:
-# every neighbor access clamps at the true image border (global-coordinate
-# `where`), matching `jnp.pad(mode="edge")`-then-shift of the XLA path.
-# Bands overlap by a halo of one row/col per chained stencil application
-# (1 initial Scharr + n diffusion steps per cycle + 1 post-cycle Scharr,
-# + 1 leaf second-derivative Scharr) so band interiors are exact.
-
-
-def _octave_plan(H: int, W: int, cycles) -> Tuple[int, int, int, int]:
-    """(TH, nb, halo8, Wp): band rows, band count, 8-aligned halo, lane pad.
-
-    Bands split rows only (lanes stay whole: no lane halos). nb is the
-    smallest power of two keeping ~12 live window-sized f32 temporaries of
-    the unrolled stencil chain plus the 4-plane output staging buffer under
-    the scoped-VMEM budget (outputs themselves go to HBM by DMA)."""
-    halo = sum(len(taus) + 1 for taus in cycles) + 2
-    halo8 = ((halo + 7) // 8) * 8
-    Wp = ((W + 127) // 128) * 128
-    nb = 1
-    while True:
-        TH = ((H + nb - 1) // nb + 7) // 8 * 8
-        vmem = (TH + 2 * halo8) * Wp * 4 * 12 + 4 * TH * Wp * 4
-        if vmem <= 11_000_000 or nb >= 16:
-            return TH, nb, halo8, Wp
-        nb *= 2
-
-
-def _make_fed_octave_kernel(H, W, TH, halo8, Wp, cycles, sigma4s, nb):
-    WH = TH + 2 * halo8
-
-    def kernel(Lp_hbm, k2_ref, l_ref, lx_ref, ly_ref, resp_ref,
-               win, stage, sem, osems):
-        i = pl.program_id(0)
-        b = i // nb           # batch image
-        j = i % nb            # row band within the image
-        cp = pltpu.make_async_copy(
-            Lp_hbm.at[b, pl.ds(j * TH, WH), pl.ds(0, Wp)], win, sem
-        )
-        cp.start()
-        cp.wait()
-
-        gy = (
-            jax.lax.broadcasted_iota(jnp.int32, (WH, Wp), 0)
-            + j * TH - halo8
-        )
-        gx = jax.lax.broadcasted_iota(jnp.int32, (WH, Wp), 1)
-
-        def roll(a, d, axis):
-            return pltpu.roll(a, (-d) % a.shape[axis], axis)
-
-        # edge-clamped neighbor views (value at (gy+dy, gx+dx) clamped to
-        # the image rectangle — identical to pad(mode="edge") + shift)
-        def shift_rows(a, dy):
-            if dy == 0:
-                return a
-            r = roll(a, dy, 0)
-            return jnp.where(gy <= 0, a, r) if dy < 0 else jnp.where(
-                gy >= H - 1, a, r
-            )
-
-        def shift_cols(a, dx):
-            if dx == 0:
-                return a
-            r = roll(a, dx, 1)
-            return jnp.where(gx <= 0, a, r) if dx < 0 else jnp.where(
-                gx >= W - 1, a, r
-            )
-
-        # Scharr weights, (dy, dx) -> (wx, wy); streamed accumulation keeps
-        # ~5 window temporaries live instead of the 11 of a dict-of-shifts
-        # form (the scoped-VMEM budget is the binding constraint here)
-        _SW = {
-            (-1, -1): (-3.0, -3.0), (-1, 0): (0.0, -10.0),
-            (-1, 1): (3.0, -3.0), (0, -1): (-10.0, 0.0),
-            (0, 1): (10.0, 0.0), (1, -1): (-3.0, 3.0),
-            (1, 0): (0.0, 10.0), (1, 1): (3.0, 3.0),
-        }
-
-        def scharr(a):
-            sgx = jnp.zeros_like(a)
-            sgy = jnp.zeros_like(a)
-            for dy in (-1, 0, 1):
-                r = shift_rows(a, dy)
-                for dx in (-1, 0, 1):
-                    if (dy, dx) == (0, 0):
-                        continue
-                    wx, wy = _SW[(dy, dx)]
-                    v = shift_cols(r, dx)
-                    if wx:
-                        sgx = sgx + wx * v
-                    if wy:
-                        sgy = sgy + wy * v
-            return sgx / 32.0, sgy / 32.0
-
-        def interior(a):
-            return a[halo8 : halo8 + TH, :]
-
-        outs = (l_ref, lx_ref, ly_ref, resp_ref)
-        k2 = k2_ref[b]
-        L = win[:]
-        dLx, dLy = scharr(L)
-        copies = []
-        for s, taus in enumerate(cycles):
-            g = 1.0 / (1.0 + (dLx * dLx + dLy * dLy) / k2)
-            # half-grid conductivities, fixed across the cycle (FED parity)
-            g_e = 0.5 * (g + shift_cols(g, 1))
-            g_w = 0.5 * (g + shift_cols(g, -1))
-            g_s = 0.5 * (g + shift_rows(g, 1))
-            g_n = 0.5 * (g + shift_rows(g, -1))
-            for tau in taus:
-                flux = (
-                    g_e * (shift_cols(L, 1) - L)
-                    + g_w * (shift_cols(L, -1) - L)
-                    + g_s * (shift_rows(L, 1) - L)
-                    + g_n * (shift_rows(L, -1) - L)
-                )
-                L = L + tau * flux
-            # sublevel outputs; (dLx, dLy) double as the NEXT cycle's
-            # conductivity gradient (both are Scharr of this same L)
-            dLx, dLy = scharr(L)
-            Lxx, Lxy = scharr(dLx)
-            _, Lyy = scharr(dLy)
-            # stage each output plane in VMEM and DMA it out to HBM; the
-            # previous sublevel's copies must land before restaging
-            for c in copies:
-                c.wait()
-            copies = []
-            vals = (L, dLx, dLy, sigma4s[s] * (Lxx * Lyy - Lxy * Lxy))
-            for jj, v in enumerate(vals):
-                stage[jj] = interior(v)
-                c = pltpu.make_async_copy(
-                    stage.at[jj],
-                    outs[jj].at[b, s, pl.ds(j * TH, TH), pl.ds(0, Wp)],
-                    osems.at[jj],
-                )
-                c.start()
-                copies.append(c)
-        for c in copies:
-            c.wait()
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("H", "W", "cycles", "sigma4s", "interpret")
-)
-def fed_octave_pallas(
-    L: jnp.ndarray,          # (B, H, W) current-octave base images
-    k2: jnp.ndarray,         # (B,) squared contrast factors
-    H: int,
-    W: int,
-    cycles,                  # tuple of tuples of static tau step sizes
-    sigma4s,                 # tuple of static (sigma_px^2)^2 response scales
-    interpret: bool = False,
-):
-    """All FED cycles of one octave + per-sublevel derivatives, fused.
-
-    Returns (L, Lx, Ly, response), each (B, S, H, W) — the complete
-    Evolution payload of the octave in one launch. The batch rides the
-    grid's leading factor (grid = B * row_bands), so a D-drone session step
-    compiles ONE diffusion kernel instance, not D unrolled copies.
-    """
-    S = len(cycles)
-    B = L.shape[0]
-    TH, nb, halo8, Wp = _octave_plan(H, W, cycles)
-    Hp = nb * TH
-    Lp = jnp.pad(
-        L,
-        ((0, 0), (halo8, halo8 + Hp - H), (0, Wp - W)),
-        mode="edge",
-    )
-    shape = jax.ShapeDtypeStruct((B, S, Hp, Wp), jnp.float32)
-    outs = pl.pallas_call(
-        _make_fed_octave_kernel(H, W, TH, halo8, Wp, cycles, sigma4s, nb),
-        grid=(B * nb,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        # outputs live in HBM; the kernel DMAs band interiors out from the
-        # staging scratch (4 full (S, TH, Wp) VMEM out blocks would blow
-        # the scoped-VMEM limit)
-        out_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY)] * 4,
-        out_shape=[shape] * 4,
-        scratch_shapes=[
-            pltpu.VMEM((TH + 2 * halo8, Wp), jnp.float32),
-            pltpu.VMEM((4, TH, Wp), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-        interpret=interpret,
-    )(Lp, jnp.asarray(k2, jnp.float32).reshape(B))
-    return tuple(o[:, :, :H, :W] for o in outs)
-
-
 def build_scale_space(
     image: jnp.ndarray,
     num_octaves: int = 4,
@@ -393,9 +178,8 @@ def build_scale_space_batch(
 
     Octave o holds the image at 2^-o resolution; each sublevel advances the
     diffusion to t = sigma^2/2 with one FED cycle. All loop lengths are
-    static (sigma schedule known at trace time). The batch is ONE kernel
-    launch per octave (fed_octave_pallas grid = B * row_bands) — not B
-    unrolled pipeline copies.
+    static (sigma schedule known at trace time). The batch is vmapped — not
+    B unrolled pipeline copies.
     """
     img = images.astype(jnp.float32) / 255.0
     # initial smoothing to sigma0 (approximated by a short linear diffusion)
@@ -405,7 +189,6 @@ def build_scale_space_batch(
     levels: List[Evolution] = []
     L = img
     t_prev = 0.5 * 0.5 ** 2  # assume camera blur sigma ~0.5
-    fused = use_pallas() or interpret_mode()
     for o in range(num_octaves):
         # static per-octave schedule: (sigma, tau cycle) per sublevel.
         # Time is advanced on the CURRENT octave's grid: downsampling by 2
@@ -420,53 +203,33 @@ def build_scale_space_batch(
             cycles.append(tuple(fed_tau_cycle(dt, tau_max)))
             t_prev = t
 
-        h, w = L.shape[1:]
-        sigma4s = tuple(
-            float((sigmas[s] / (2.0 ** o)) ** 4) for s in range(num_sublevels)
-        )
-        if fused:
-            # whole octave (FED cycles + per-sublevel Lx/Ly/Hessian response)
-            # in one Pallas launch — L round-trips HBM once per octave, not
-            # once per stencil pass
-            Ls, Lxs, Lys, resps = fed_octave_pallas(
-                L, k2, h, w, tuple(cycles), sigma4s,
-                interpret=interpret_mode(),
+        # per-step stencils, vmapped over the batch.
+        # FED semantics (and OpenMVG AKAZE parity): the conductivity is
+        # computed ONCE per cycle and held FIXED across the cycle's
+        # explicit steps — the varying tau schedule is only stable as a
+        # cycle of steps of one linear operator.
+        def octave(L1, k21):
+            outs = []
+            for s, taus in enumerate(cycles):
+                gx, gy = _scharr(L1)
+                g = 1.0 / (1.0 + (gx * gx + gy * gy) / k21)
+                for tau in taus:
+                    L1 = _diffusion_step(L1, g, tau)
+                sigma_px = sigmas[s] / (2.0 ** o)  # octave pixels
+                resp, Lx, Ly = _hessian_response(L1, sigma_px)
+                outs.append((L1, Lx, Ly, resp))
+            return tuple(
+                jnp.stack([ot[i] for ot in outs]) for i in range(4)
             )
-            for s in range(num_sublevels):
-                levels.append(
-                    Evolution(L=Ls[:, s], Lx=Lxs[:, s], Ly=Lys[:, s],
-                              response=resps[:, s], sigma=sigmas[s],
-                              octave=o)
-                )
-            L = Ls[:, num_sublevels - 1]
-        else:
-            # XLA reference path: per-step stencils, vmapped over the batch.
-            # FED semantics (and OpenMVG AKAZE parity): the conductivity is
-            # computed ONCE per cycle and held FIXED across the cycle's
-            # explicit steps — the varying tau schedule is only stable as a
-            # cycle of steps of one linear operator.
-            def octave_xla(L1, k21):
-                outs = []
-                for s, taus in enumerate(cycles):
-                    gx, gy = _scharr(L1)
-                    g = 1.0 / (1.0 + (gx * gx + gy * gy) / k21)
-                    for tau in taus:
-                        L1 = _diffusion_step(L1, g, tau)
-                    sigma_px = sigmas[s] / (2.0 ** o)  # octave pixels
-                    resp, Lx, Ly = _hessian_response(L1, sigma_px)
-                    outs.append((L1, Lx, Ly, resp))
-                return tuple(
-                    jnp.stack([ot[i] for ot in outs]) for i in range(4)
-                )
 
-            Ls, Lxs, Lys, resps = jax.vmap(octave_xla)(L, k2)
-            for s in range(num_sublevels):
-                levels.append(
-                    Evolution(L=Ls[:, s], Lx=Lxs[:, s], Ly=Lys[:, s],
-                              response=resps[:, s], sigma=sigmas[s],
-                              octave=o)
-                )
-            L = Ls[:, num_sublevels - 1]
+        Ls, Lxs, Lys, resps = jax.vmap(octave)(L, k2)
+        for s in range(num_sublevels):
+            levels.append(
+                Evolution(L=Ls[:, s], Lx=Lxs[:, s], Ly=Lys[:, s],
+                          response=resps[:, s], sigma=sigmas[s],
+                          octave=o)
+            )
+        L = Ls[:, num_sublevels - 1]
         if o + 1 < num_octaves:
             # downsample by 2 for the next octave
             L = L[:, ::2, ::2]

@@ -1,4 +1,4 @@
-"""FAST-9 corner detection, fully vectorized for the VPU.
+"""FAST-9 corner detection, fully vectorized.
 
 Reference parity: KFAST.h — multi-scale FAST-9 with (a) 2-of-4 cardinal
 pretest, (b) >=9-consecutive-of-16 ring test, (c) per-corner score = max over
@@ -9,21 +9,16 @@ whole image is one vector computation — the ring test is 16 shifted
 comparisons and the consecutive-arc tests use a doubling (AND/MIN) cascade, so
 the entire detector is ~150 elementwise ops that XLA fuses into a few passes.
 
-The host-side std::vector keypoint accumulation becomes jax.lax.top_k over the
-masked score map (fixed capacity, SURVEY.md §7.1.2).
+The host-side std::vector keypoint accumulation becomes an exact top-k over
+the masked score map (fixed capacity, SURVEY.md §7.1.2).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from coloc_tpu.ops.dispatch import use_pallas
 
 # Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx)
 RING_OFFSETS = (
@@ -100,225 +95,35 @@ def nms3(score: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(is_max & ~tie_earlier, score, 0.0)
 
 
-def topk_keypoints(
-    score: jnp.ndarray, k: int, border: int = 0, exact: bool = False
-) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Top-k peaks of a score map -> (x (k,), y (k,), score (k,), valid (k,)).
+def top_k_sorted(x: jnp.ndarray, k: int) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Exact top-k along the last axis by one stable sort: (values, indices),
+    values descending, ties to the lowest index (`lax.top_k`'s contract).
 
-    Uses `jax.lax.approx_max_k` by default: exact `top_k` over an H*W score
-    map costs milliseconds per pyramid level on TPU (full sort network),
-    while approx_max_k uses the TPU-optimized partial-reduction path at ~10x
-    lower cost. Recall is ~0.95 at the default settings; losing a few
-    low-ranked keypoints is immaterial to the pipeline (they are thresholded
-    and NMS'd peaks, not ordered output). Set exact=True for bit-parity runs.
+    A sort rather than `lax.top_k`/`approx_max_k`: on the GPU, XLA's TopK
+    path exhausts the host's memory while compiling k ~ 1000 over the ~1.7M
+    pixels of a stacked 752x480 pyramid raster; a sort compiles in seconds.
     """
+    idx = jax.lax.broadcasted_iota(jnp.int32, x.shape, x.ndim - 1)
+    neg, idx = jax.lax.sort((-x, idx), dimension=x.ndim - 1, num_keys=1,
+                            is_stable=True)
+    return -neg[..., :k], idx[..., :k]
+
+
+def topk_keypoints(
+    score: jnp.ndarray, k: int, border: int = 0
+) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
+    """Top-k peaks of a score map -> (x (k,), y (k,), score (k,), valid (k,))."""
     h, w = score.shape
     if border > 0:
         yy = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
         xx = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
         inb = (yy >= border) & (yy < h - border) & (xx >= border) & (xx < w - border)
         score = jnp.where(inb, score, 0.0)
-    flat = score.reshape(-1)
-    if exact or flat.shape[0] <= 2 * k:
-        vals, idx = jax.lax.top_k(flat, k)
-    else:
-        vals, idx = jax.lax.approx_max_k(flat, k)
+    vals, idx = top_k_sorted(score.reshape(-1), k)
     y = (idx // w).astype(jnp.float32)
     x = (idx % w).astype(jnp.float32)
     valid = vals > 0
     return x, y, vals, valid
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel: FAST score + 3x3 NMS in one pass
-# ---------------------------------------------------------------------------
-#
-# The XLA path materializes a (16, H, W) ring stack plus ~8 cascade
-# intermediates per level — the jnp.roll along the 16-axis blocks fusion and
-# each intermediate round-trips HBM. The Pallas kernel processes (TH, TW)
-# output tiles from a (TH+8, TW+128) halo window:
-#   - window DMAs are manually DOUBLE-BUFFERED across the grid (overlapping
-#     windows can't ride BlockSpec pipelining; a blocking per-program copy
-#     costs ~2.5 us of DMA latency per tile — more than the compute),
-#   - every intermediate keeps the full aligned window shape, with the 16
-#     ring "shifts" as lane/sublane rotations (pltpu.roll) — odd-shaped
-#     sub-slices forced Mosaic relayouts on every cascade op (~4x slower),
-#   - the image border (3 px, matching fast_score_map's `inb` mask) is zeroed
-#     IN-KERNEL before NMS so border scores can't suppress interior peaks.
-
-_TH = 128   # output tile rows
-_TW = 256   # default output tile cols (lanes: multiple of 128)
-_HALO = 4   # 3 (ring radius) + 1 (NMS neighborhood)
-
-
-def _tile_cols(w: int) -> int:
-    """Output-tile lane width for an image of width w.
-
-    The halo recompute tax is (TW + 128) / TW in the lane dimension, so
-    wider tiles do proportionally less redundant work (256 -> 1.5x,
-    512 -> 1.25x lane overhead). The ceiling keeps the peak VMEM residency
-    bounded: Mosaic holds ~47 window-sized f32 intermediates live through
-    the cascade (measured from a scoped-vmem OOM report: 19.82 MB at a
-    136x768 window against the 16 MB limit), so candidate widths are
-    filtered to (TH + 8) * (tw + 128) <= 79k window elements (~15 MB)."""
-    best_tw, best_work = 128, None
-    for tw in (128, 256, 384, 512, 640):
-        if (_TH + 2 * _HALO) * (tw + 128) > 79_000 and tw != 128:
-            continue
-        wp = ((w + tw - 1) // tw) * tw
-        work = (wp // tw) * (tw + 128)  # lane columns actually processed
-        if best_work is None or work < best_work:
-            best_tw, best_work = tw, work
-    return best_tw
-
-
-def _win_roll(a, d, axis):
-    # view[i] = a[i + d]; pltpu.roll only takes non-negative shifts.
-    # Wrap-around garbage stays in the halo (all shifts <= 4; outputs only
-    # read window rows [3, TH+5) x cols [3, TW+5)).
-    return pltpu.roll(a, (-d) % a.shape[axis], axis)
-
-
-def _make_fast_nms_kernel(h: int, w: int, nj: int, tw: int):
-    """Kernel closure over static image dims (for the in-kernel border mask),
-    the lane-dim grid extent (for double-buffer lookahead), and the tile
-    width chosen by _tile_cols."""
-
-    def kernel(img_hbm, thresh_ref, raw_ref, score_ref, win2, sem2):
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        ni = pl.num_programs(0)
-        step = i * nj + j
-        slot = jax.lax.rem(step, 2)
-
-        def window_copy(si, sj, s):
-            return pltpu.make_async_copy(
-                img_hbm.at[pl.ds(si * _TH, _TH + 2 * _HALO),
-                           pl.ds(sj * tw, tw + 128)],
-                win2.at[s],
-                sem2.at[s],
-            )
-
-        @pl.when(step == 0)
-        def _():
-            window_copy(i, j, 0).start()
-
-        nstep = step + 1
-
-        @pl.when(nstep < ni * nj)
-        def _():
-            window_copy(nstep // nj, jax.lax.rem(nstep, nj),
-                        jax.lax.rem(nstep, 2)).start()
-
-        window_copy(i, j, slot).wait()
-
-        t = thresh_ref[0]
-        wv = win2[slot]  # full (TH+8, TW+128) window
-
-        row_rolled = {
-            dy: (_win_roll(wv, dy, 0) if dy else wv)
-            for dy in sorted({dy for dy, _ in RING_OFFSETS})
-        }
-
-        def shifted(dy, dx, rows):
-            a = rows[dy]
-            return _win_roll(a, dx, 1) if dx else a
-
-        def cascade(vals):
-            def rot(lst, s):
-                return lst[s:] + lst[:s]
-            r2 = [jnp.minimum(a, b) for a, b in zip(vals, rot(vals, 1))]
-            r4 = [jnp.minimum(a, b) for a, b in zip(r2, rot(r2, 2))]
-            r8 = [jnp.minimum(a, b) for a, b in zip(r4, rot(r4, 4))]
-            return [jnp.minimum(a, b) for a, b in zip(r8, rot(vals, 8))]
-
-        # arc minimums double as the consecutive-9 test, and the per-arc
-        # threshold select folds into one test on the max (see fast_score_map)
-        dev = [shifted(dy, dx, row_rolled) - wv for (dy, dx) in RING_OFFSETS]
-        bright_arc = cascade(dev)
-        dark_arc = cascade([-d for d in dev])
-
-        score = bright_arc[0]
-        for ba in bright_arc[1:]:
-            score = jnp.maximum(score, ba)
-        for da in dark_arc:
-            score = jnp.maximum(score, da)
-        score = jnp.where(score > t, score, 0.0)
-
-        # zero the 3-px image border in-window (window (r, c) = image
-        # (i*TH + r - HALO, j*TW + c - HALO)) so NMS can't be suppressed by
-        # border scores the XLA reference path zeroes before nms3
-        wh, ww = score.shape
-        gy = jax.lax.broadcasted_iota(jnp.int32, (wh, ww), 0) + i * _TH - _HALO
-        gx = jax.lax.broadcasted_iota(jnp.int32, (wh, ww), 1) + j * tw - _HALO
-        inb = (gy >= 3) & (gy < h - 3) & (gx >= 3) & (gx < w - 3)
-        score = jnp.where(inb, score, 0.0)
-
-        # window coords: out pixel (r, c) of this tile = score[r + 4, c + 4]
-        raw_ref[:, :] = score[_HALO : _HALO + _TH, _HALO : _HALO + tw]
-
-        # 3x3 NMS with earlier-raster tie-break, still full-window
-        srows = {dy: (_win_roll(score, dy, 0) if dy else score)
-                 for dy in (-1, 0, 1)}
-        neigh = [shifted(dy, dx, srows)
-                 for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy, dx) != (0, 0)]
-        neigh_max = neigh[0]
-        for n in neigh[1:]:
-            neigh_max = jnp.maximum(neigh_max, n)
-        # earlier (raster-order) neighbors: (-1,-1), (-1,0), (-1,1), (0,-1)
-        earlier = jnp.maximum(jnp.maximum(neigh[0], neigh[1]),
-                              jnp.maximum(neigh[2], neigh[3]))
-        keep = (score >= neigh_max) & (earlier < score)
-        nms = jnp.where(keep, score, 0.0)
-        score_ref[:, :] = nms[_HALO : _HALO + _TH, _HALO : _HALO + tw]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def fast_nms_pallas(image: jnp.ndarray, threshold, interpret: bool = False):
-    """Fused FAST-9 + NMS (Pallas) -> (raw score map, NMS'd score map).
-
-    The raw map feeds subpixel refinement; the NMS'd map feeds top-k. Border
-    semantics match nms3(fast_score_map(.)): edge-replicated ring sampling,
-    3-px border zeroed (before NMS, like the XLA path).
-    """
-    h, w = image.shape
-    tw = _tile_cols(w)
-    hp = ((h + _TH - 1) // _TH) * _TH
-    wp = ((w + tw - 1) // tw) * tw
-    padded = jnp.pad(
-        image,
-        ((_HALO, _HALO + hp - h), (_HALO, (128 - _HALO) + wp - w)),
-        mode="edge",
-    )
-    thresh = jnp.asarray([threshold], jnp.float32)
-    nj = wp // tw
-
-    raw, score = pl.pallas_call(
-        _make_fast_nms_kernel(h, w, nj, tw),
-        grid=(hp // _TH, nj),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((_TH, tw), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_TH, tw), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-            jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, _TH + 2 * _HALO, tw + 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-    )(padded, thresh)
-    return raw[:h, :w], score[:h, :w]
 
 
 def subpixel_offsets(
@@ -369,16 +174,9 @@ def subpixel_refine(
 def detect(
     image: jnp.ndarray, threshold: float, k: int, border: int = 0
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Full single-level FAST: score -> NMS -> top-k -> subpixel refine.
-
-    On TPU the fused Pallas kernel produces both the raw score map (for
-    subpixel refinement) and the NMS'd map (for top-k) in one pass.
-    """
-    if use_pallas():
-        score_raw, score_nms = fast_nms_pallas(image, threshold)
-    else:
-        score_raw = fast_score_map(image, threshold)
-        score_nms = nms3(score_raw)
+    """Full single-level FAST: score -> NMS -> top-k -> subpixel refine."""
+    score_raw = fast_score_map(image, threshold)
+    score_nms = nms3(score_raw)
     x, y, s, v = topk_keypoints(score_nms, k, border)
     x, y = subpixel_refine(score_raw, x, y)
     return x, y, s, v

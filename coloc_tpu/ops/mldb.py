@@ -14,16 +14,11 @@ Binary). Semantics:
     comparison bit: (6+36+120)*3 = 486 bits, zero-padded to 512 in the packed
     bank so the Hamming kernel is shared with TRIP-512.
 
-Sampling rides the fused window-DMA + one-hot MXU kernel
+Sampling rides the window + one-hot path
 (ops/patches.sample_raster_flat): the L/Lx/Ly evolution rasters (plus
-64-lane-shifted copies, see akaze.py's window selection) stack into one
-row-stacked buffer, one narrow 64x128 window per keypoint is DMA'd to
-VMEM, and every disc/grid sample is a one-hot matmul column evaluated
-in-kernel — per-keypoint patches and one-hot weights never touch HBM. The
-earlier flattened-pyramid gather formulation lowered to millions of
-scalar-indexed loads (~60 ms of an 86 ms frame at kp=5000 on v5e); the
-intermediate extract-patches + XLA one-hot einsum form still wrote ~GBs
-of one-hot / partial-product HBM intermediates at K=5000, NS=464. Sample
+64-column-shifted copies, see akaze.py's window selection) stack into one
+row-stacked buffer, one narrow 64x128 window per keypoint is sliced out,
+and every disc/grid sample is a one-hot matmul column. Sample
 reach fits the window: descriptor 5*sigma_px*sqrt(2) <= 19.1 px,
 orientation disc 6*sigma_px <= 16.2 px (sigma_px in [1.6, 2.69] for every
 octave's sublevels), both under the 26 px margin the window selection in
@@ -73,7 +68,7 @@ def orientation(
 ) -> jnp.ndarray:
     """Dominant-gradient orientation per keypoint, (K,) radians.
 
-    `sampler` is the fused window-DMA + one-hot MXU sampling closure built
+    `sampler` is the window + one-hot sampling closure built
     by the caller (patches.sample_raster_flat over the Lx/Ly stack only —
     the orientation disc reaches 6*sigma <= 16.2 px, so the caller gives
     this pass NARROW 48-row 2-channel windows: the window DMA traffic is
@@ -116,7 +111,7 @@ def _grid_cells(cell_samples: int = _CELL_SAMPLES):
     normalized patch coords in [-1, 1]. Returns (coords (N,2), cell_id (N,),
     pair tables per grid). `cell_samples` is the per-cell n x n sample grid
     (4 = the dense default; 3/2 trade descriptor robustness for a smaller
-    sampling matmul — see scripts/prof_akaze_frontier.py)."""
+    sampling matmul)."""
     coords, cell_of = [], []
     cell_base = 0
     grids = []

@@ -1,10 +1,10 @@
 """Keypoint orientation by weighted intensity centroid.
 
 Reference parity: FeatureAngle.h:197-246 — 7x7 weighted intensity-centroid
-gradient (SSE) + polynomial fastAtan2 (:160-177). TPU-native shape: the 7x7
-integer window is sampled from per-keypoint patches via the one-hot MXU path
-(ops/patches.py) and the centroid moments are two (K, 49) @ (49,) dots; atan2
-comes from the VPU. Documented deviation: the window reads the box-smoothed
+gradient (SSE) + polynomial fastAtan2 (:160-177). Device shape: the 7x7
+integer window is sampled from per-keypoint patches via the one-hot path
+(ops/patches.py) and the centroid moments are two (K, 49) @ (49,) dots,
+followed by an elementwise atan2. Documented deviation: the window reads the box-smoothed
 pyramid (the same buffer the descriptor samples) rather than the raw level —
 the intensity centroid is a low-pass statistic, so the pre-smoothing shifts
 angles only marginally and identically for all frames.

@@ -1,43 +1,35 @@
-"""Per-keypoint patch extraction + MXU one-hot sampling.
+"""Per-keypoint patch extraction + one-hot sampling.
 
 The reference's per-keypoint work (FeatureAngle.h orientation window, CLATCH.cu
 rotated-ROI descriptor sampling) is random access into the image pyramid — one
-CUDA block per keypoint. On TPU, XLA lowers scattered element gathers to a slow
-serial path (~10 ns/element measured on v5e — several ms per frame at ~250k
-samples). The TPU-native shape of this stage is:
+CUDA block per keypoint. Here this stage is:
 
-  1. EXTRACT: one aligned (PH, PW) window per keypoint around its location,
-     copied HBM->HBM by a Pallas kernel issuing one DMA per keypoint (dynamic
-     offsets rounded down to the (8, 128) tile grid so Mosaic can prove
-     alignment). ~1024 DMAs ~= 0.4 ms, vs ~4 ms for elementwise gathers.
+  1. EXTRACT: one aligned (PH, PW) window per keypoint around its location
+     (a vmapped dynamic_slice; origins rounded down to an (8, 128) grid).
   2. SAMPLE: all per-keypoint samples (orientation window + steered descriptor
      pool) become one-hot row/column weight matrices contracted against the
-     patches on the MXU — einsum('krc,kic->kir') then a row-weighted reduce.
+     patches — einsum('krc,kic->kir') then a row-weighted reduce.
      Nearest-neighbor semantics = exact one-hot selection; weights and patch
      values ride bf16 (integer-ish pixel values; one-hots are exact in bf16).
 
+Whether direct gathers beat this on the GPU is not measured yet.
+
 Levels of the pyramid are stacked vertically into one (sum H_l, PW_stack)
 raster so a single buffer serves every level (flattened-pyramid analog with
-2-D structure preserved for windowed DMA).
+2-D structure preserved for windowed slicing).
 """
 
 from __future__ import annotations
 
-import functools
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from coloc_tpu.ops.dispatch import interpret_mode, use_pallas
 
 PH = 64           # patch rows (8-aligned; covers +-26 around any row-in-8 kp)
 PW = 256          # patch cols (128-aligned; covers +-26 around any lane kp)
 _MARGIN = 26      # max sample offset from the keypoint the patch must cover
-_KB = 8           # keypoints per kernel program (DMAs in flight)
 
 
 class StackedPyramid:
@@ -66,8 +58,8 @@ def stack_levels(levels: Sequence[jnp.ndarray]) -> StackedPyramid:
     """Stack pyramid levels vertically, zero-padded to a shared lane width.
 
     The shared width is max(W_0, PW) rounded up to 128 so any patch window
-    fits; per-level heights are padded to a multiple of 8 (sublane tile) so
-    level boundaries stay DMA-addressable.
+    fits; per-level heights are padded to a multiple of 8 so level
+    boundaries stay on the patch-origin grid.
     """
     wmax = max(max(lvl.shape[1] for lvl in levels), PW)
     wp = ((wmax + 127) // 128) * 128
@@ -92,8 +84,8 @@ def stack_levels(levels: Sequence[jnp.ndarray]) -> StackedPyramid:
 def stack_levels_batch(levels: Sequence[jnp.ndarray]) -> StackedPyramid:
     """Batched stack_levels: levels are (B, H_l, W_l); the B per-image
     rasters stack VERTICALLY into one (B * R, WP) buffer so the fused
-    FAST+NMS kernel and the patch-DMA kernel each run ONCE for the whole
-    batch (no per-image kernel unroll — VERDICT r2 item 6). Per-level
+    FAST+NMS pass and the patch extraction each run ONCE for the whole
+    batch (no per-image unroll). Per-level
     keep-out borders (>= 8 rows, frontend._detection_mask) already mask
     every pixel the 3-px ring/NMS neighborhoods could leak across level —
     and therefore image — boundaries, exactly as they do between levels
@@ -149,174 +141,12 @@ def patch_origins(
     return row0, col0
 
 
-def _extract_kernel(row0_ref, col0_ref, src_hbm, out_ref, sems):
-    i = pl.program_id(0)
-    copies = []
-    for j in range(_KB):
-        k = i * _KB + j
-        # //*mul form: Mosaic's alignment prover accepts floordiv+mul but
-        # not shift pairs
-        r0 = (row0_ref[k] // 8) * 8
-        c0 = (col0_ref[k] // 128) * 128
-        c = pltpu.make_async_copy(
-            src_hbm.at[pl.ds(r0, PH), pl.ds(c0, PW)],
-            out_ref.at[j],
-            sems.at[j],
-        )
-        c.start()
-        copies.append(c)
-    for c in copies:
-        c.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _extract_pallas(src, row0, col0, interpret=False):
-    K = row0.shape[0]
-    kb = _KB if K % _KB == 0 else 1
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(K // kb,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY)],
-        out_specs=pl.BlockSpec((kb, PH, PW), lambda i, r, c: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.SemaphoreType.DMA((kb,))],
-    )
-    kernel = _extract_kernel
-    if kb != _KB:
-        def kernel(row0_ref, col0_ref, src_hbm, out_ref, sems):  # noqa: F811
-            i = pl.program_id(0)
-            r0 = (row0_ref[i] // 8) * 8
-            c0 = (col0_ref[i] // 128) * 128
-            c = pltpu.make_async_copy(
-                src_hbm.at[pl.ds(r0, PH), pl.ds(c0, PW)],
-                out_ref.at[0],
-                sems.at[0],
-            )
-            c.start()
-            c.wait()
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((K, PH, PW), src.dtype),
-        interpret=interpret,
-    )(row0, col0, src)
-
-
 def extract_patches(src: jnp.ndarray, row0: jnp.ndarray, col0: jnp.ndarray
                     ) -> jnp.ndarray:
     """(R, WP) source + (K,) aligned origins -> (K, PH, PW) patches."""
-    if use_pallas() or interpret_mode():
-        return _extract_pallas(src, row0, col0, interpret=interpret_mode())
-    # XLA fallback (CPU tests): vmapped dynamic_slice, same values
     return jax.vmap(
         lambda r, c: jax.lax.dynamic_slice(src, (r, c), (PH, PW))
     )(row0, col0)
-
-
-def _sample_raster_kernel(C, stride, kb, ph, pw, row0_ref, col0_ref,
-                          src_hbm, lx_ref, ly_ref, out_ref, win, sems):
-    """Fused window-DMA + one-hot MXU sampling, all intermediates in VMEM.
-
-    Per keypoint j and channel c: DMA the (ph, pw) window at
-    (row0[j] + c*stride, col0[j]) from the channel-stacked raster, then
-    sample = reduce_rows(rowhot (ph, NS) * (win (ph, pw) @ colhot (pw, NS))).
-    The sample axis NS stays on LANES throughout (one-hots are built from
-    (1, NS) coordinate rows), so no sublane<->lane relayouts; the matmul is
-    an MXU-friendly (PH, pw) x (pw, NS) bf16 pass. This replaces the XLA
-    extract+sample path whose (K, NS, PW) one-hot and (K, NS, PH) partial
-    intermediates cost gigabytes of HBM traffic at K=5000, NS=464 (~20 ms of
-    the AKAZE frame on v5e; the fused kernel leaves only the window reads).
-    """
-    i = pl.program_id(0)
-    NS = lx_ref.shape[1]
-    copies = []
-    for j in range(kb):
-        k = i * kb + j
-        r0 = (row0_ref[k] // 8) * 8
-        c0 = (col0_ref[k] // 128) * 128
-        for c in range(C):
-            cp = pltpu.make_async_copy(
-                src_hbm.at[pl.ds(r0 + c * stride, ph), pl.ds(c0, pw)],
-                win.at[j, c],
-                sems.at[j, c],
-            )
-            cp.start()
-            copies.append(cp)
-    for j in range(kb):
-        # coords as (1, NS) lane rows — matches sample_nearest's
-        # clip-then-round (round ties even, same as the fallback)
-        ci = jnp.round(jnp.clip(lx_ref[j : j + 1], 0, pw - 1)
-                       ).astype(jnp.int32)                       # (1, NS)
-        ri = jnp.round(jnp.clip(ly_ref[j : j + 1], 0, ph - 1)
-                       ).astype(jnp.int32)
-        colhot = (
-            jax.lax.broadcasted_iota(jnp.int32, (pw, NS), 0) == ci
-        ).astype(jnp.bfloat16)
-        rowhot = (
-            jax.lax.broadcasted_iota(jnp.int32, (ph, NS), 0) == ri
-        ).astype(jnp.float32)
-        for c in range(C):
-            copies[j * C + c].wait()
-        # ONE (C*ph, pw) x (pw, NS) matmul per keypoint: the C channel
-        # windows are contiguous sublane rows, so the merge is free, and
-        # per-matmul issue overhead dominates these small shapes (measured:
-        # 3 separate 64-row dots cost ~2x the merged 192-row dot)
-        w3 = win[j].astype(jnp.bfloat16).reshape(C * ph, pw)
-        q = jax.lax.dot_general(
-            w3, colhot,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )                                                        # (C*PH, NS)
-        for c in range(C):
-            out_ref[c, j] = jnp.sum(
-                q[c * ph : (c + 1) * ph] * rowhot, axis=0
-            )
-
-
-_KB_SAMPLE = 32   # sampling-kernel keypoints per program: per-keypoint issue
-                  # overhead (DMA starts, one-hot builds, matmul issues)
-                  # dominates at K=5000, so batch as many as the VMEM window
-                  # scratch allows; K is padded up to a multiple below
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("C", "stride", "ph", "pw", "interpret"))
-def _sample_raster_pallas(src2, row0, col0, lx, ly, C, stride, ph, pw,
-                          interpret=False):
-    K, NS = lx.shape
-    kb = min(_KB_SAMPLE, K)
-    Kp = ((K + kb - 1) // kb) * kb
-    if Kp != K:
-        # pad with benign keypoints (window at raster origin, coords 0);
-        # their outputs are sliced off below
-        z = ((0, Kp - K),)
-        row0 = jnp.pad(row0, z)
-        col0 = jnp.pad(col0, z)
-        lx = jnp.pad(lx, z + ((0, 0),))
-        ly = jnp.pad(ly, z + ((0, 0),))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(Kp // kb,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY),
-            pl.BlockSpec((kb, NS), lambda i, r, c: (i, 0)),
-            pl.BlockSpec((kb, NS), lambda i, r, c: (i, 0)),
-        ],
-        out_specs=pl.BlockSpec((C, kb, NS), lambda i, r, c: (0, i, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((kb, C, ph, pw), src2.dtype),
-            pltpu.SemaphoreType.DMA((kb, C)),
-        ],
-    )
-    kernel = functools.partial(_sample_raster_kernel, C, stride, kb, ph, pw)
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((C, Kp, NS), jnp.float32),
-        interpret=interpret,
-    )(row0, col0, src2, lx, ly)
-    return out[:, :K, :]
 
 
 def sample_raster_flat(
@@ -330,17 +160,8 @@ def sample_raster_flat(
     ph: int = PH,            # window rows (8-multiple)
     pw: int = PW,            # window width (128-multiple)
 ) -> jnp.ndarray:
-    """Nearest samples of C channels at shared coords -> (C, K, NS) f32.
-
-    Same values as a per-channel dynamic-slice + one-hot sample composition
-    (the CPU fallback IS that composition), but on TPU a single fused Pallas
-    pass with no HBM intermediates.
-    """
-    if use_pallas() or interpret_mode():
-        return _sample_raster_pallas(
-            src2, row0, col0, lx, ly, C, stride, ph, pw,
-            interpret=interpret_mode(),
-        )
+    """Nearest samples of C channels at shared coords -> (C, K, NS) f32:
+    a per-channel dynamic-slice + one-hot sample composition."""
     outs = []
     for c in range(C):
         P = jax.vmap(
@@ -371,13 +192,13 @@ def sample_nearest(
     lx: jnp.ndarray,         # (K, NS) patch-local float col coords
     ly: jnp.ndarray,         # (K, NS) patch-local float row coords
 ) -> jnp.ndarray:
-    """Nearest-neighbor samples via one-hot MXU contraction -> (K, NS) f32.
+    """Nearest-neighbor samples via one-hot contraction -> (K, NS) f32.
 
     Coords are expected pre-clamped to valid image area by the caller; they
     are additionally clamped to the patch so out-of-range indices can't wrap.
 
     Precision: one-hot WEIGHTS are exact in bf16, but the patch VALUES are
-    deliberately quantized to bf16 for the MXU pass — box-smoothed
+    deliberately quantized to bf16 for the matmul — box-smoothed
     intensities are non-integer with magnitude up to 255, where bf16 ulp is
     1.0, so samples carry up to ~0.5 intensity (~0.2% relative) of
     quantization vs a true nearest sample. This is a speed trade: an exact

@@ -2,7 +2,7 @@
 
 Reference parity: CUDALERP (src/CUDALERP.cu:153-183) — bilinear downscale of
 the base image to 8 levels at 1.2x steps, one CUDA stream per level
-(GPUDetector.hpp:250-255). On TPU the per-level resizes are just XLA ops in
+(GPUDetector.hpp:250-255). Here the per-level resizes are just XLA ops in
 one fused graph; the CPU/GPU overlap the reference needed (KFAST on host while
 GPU resizes) disappears because detection also runs on device.
 
@@ -51,12 +51,12 @@ def _resize_matrix(n_in: int, n_out: int):
 
 
 def resize_bilinear(image: jnp.ndarray, shape: Tuple[int, int]) -> jnp.ndarray:
-    """Bilinear resize via two dense matmuls (CUDALERP semantics on the MXU).
+    """Bilinear resize via two dense matmuls (CUDALERP semantics).
 
-    XLA's jax.image.resize lowers to a gather-based path that costs ~0.5 ms
-    for an 8-level 752x480 pyramid on v5e; as two static-weight matmuls the
-    same pyramid is MXU work (~1 GFLOP). HIGHEST precision keeps the resample
-    exact in f32 (pixel values feed threshold comparisons downstream).
+    Two static-weight matmuls instead of jax.image.resize's gather-based
+    path (~1 GFLOP for an 8-level 752x480 pyramid). HIGHEST precision keeps
+    the resample exact in f32 (pixel values feed threshold comparisons
+    downstream).
     """
     h, w = image.shape
     mh = jnp.asarray(_resize_matrix(h, shape[0]))

@@ -2,19 +2,19 @@
 
 Reference parity: the reference "parallelizes" N robots as a sequential loop
 in one process (coloc.hpp:128-148) and exchanges descriptors/poses/covariances
-over ROS topics or a shared folder (SURVEY.md §2.2). TPU-native redesign:
+over ROS topics or a shared folder (SURVEY.md §2.2). Mesh-native redesign:
 the drone axis IS a `jax.sharding.Mesh` axis —
   - each device runs its drone's whole intra-localization step
     (detect -> map match -> P3P -> refine -> KF) locally;
   - what the robots exchange in-algorithm is tiny (poses + 3x3 covariances +
-    descriptor banks), so inter-drone steps become ICI collectives:
+    descriptor banks), so inter-drone steps become device collectives:
     `all_gather` over the drone axis replaces ROS publish/subscribe;
   - the map descriptor bank is replicated (every drone matches against the
     shared map — the reference's resident `setMapData` bank).
 
-`collaborative_step` is the shard_mapped "training step" the driver's
-multi-chip dry-run compiles: a full per-drone localization plus an
-all-gather + pairwise ICI fusion across the mesh.
+`collaborative_step` is the shard_mapped step the multi-device dry-run
+(__graft_entry__.dryrun_multichip) compiles: a full per-drone localization
+plus an all-gather + pairwise ICI fusion across the mesh.
 """
 
 from __future__ import annotations
@@ -207,7 +207,7 @@ def _inter_exchange_step(
     per-shard leading axes already stripped).
 
     Drone d ships its frame bundle — descriptor bank, keypoints, camera,
-    filtered pose, covariance — to drone (d+1)%D over ICI via ppermute, so
+    filtered pose, covariance — to drone (d+1)%D via ppermute, so
     each drone receives its ring predecessor's bundle and runs
     inter_pose_device(src=(d-1)%D, dst=d) locally. The payload is
     ~64 B/keypoint + a few hundred bytes of pose state: exactly what the
@@ -299,7 +299,7 @@ def collaborative_step(
     `inter` selects the inter-drone exchange that replaces ROS topics:
       - "full" (default): the complete interPoseEstimator on the mesh.
         Each drone ppermutes its FEATURE BANK (descriptors + keypoints +
-        camera + pose + covariance) to its ring successor over ICI, so every
+        camera + pose + covariance) to its ring successor, so every
         drone receives its predecessor's frame data and runs pairwise match
         -> relative pose -> temp reconstruction -> scale alignment ->
         pose-only refine -> ICI fusion locally (inter_pose_device). This is
@@ -461,10 +461,10 @@ def sharded_map_match(mesh: Mesh, opts, axis: str = DRONE_AXIS,
 
     SURVEY.md §5 (long-context analog): when the landmark bank outgrows one
     chip, shard it across the mesh. Each device runs the fused Hamming 2-NN
-    kernel over its shard of the bank; the per-shard (best, second, idx)
+    2-NN over its shard of the bank; the per-shard (best, second, idx)
     triples merge with the same two-smallest logic the kernel uses
     internally, via an all_gather over the map axis — O(devices * queries)
-    bytes on ICI instead of moving any descriptors.
+    bytes between devices instead of moving any descriptors.
 
     `axis`: mesh axis the bank is sharded over. The default reuses the
     1-D drone axis (bank sharded across ALL devices, queries replicated).
@@ -495,7 +495,8 @@ def sharded_map_match(mesh: Mesh, opts, axis: str = DRONE_AXIS,
         )
         me = jax.lax.axis_index(axis)
         shard_size = shard_desc.shape[0]
-        gidx = idx + me * shard_size  # globalize within my shard
+        # globalize within my shard; -1 (no valid row) stays -1
+        gidx = jnp.where(idx >= 0, idx + me * shard_size, -1)
 
         all_best = jax.lax.all_gather(best, axis)      # (D, Q)
         all_second = jax.lax.all_gather(second, axis)  # (D, Q)

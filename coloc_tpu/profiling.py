@@ -4,7 +4,7 @@ Reference parity: the reference sprinkles std::chrono spans around every
 stage and prints them to stdout (coloc.hpp:113-144, GPUDetector.hpp:162-165,
 GPUMatcher.hpp:204-223 — SURVEY.md §5 'tracing'). This module provides the
 same per-stage wall-time lines plus structured accumulation, and hooks into
-`jax.profiler` for real TPU traces.
+`jax.profiler` for device traces.
 
 Usage:
     prof = StageProfiler(enabled=True)

@@ -32,9 +32,7 @@ import jax.numpy as jnp
 # see the scoring="nfa" branch in ransac())
 _NFA_CANDIDATES = 32
 # Pre-rank ladder shape: rungs threshold * 4^j for j in [LADDER_JMAX -
-# (LADDER_RUNGS - 1) ... LADDER_JMAX]. ONE source of truth — the fused
-# Pallas rank kernels (ops/ransac_rank.py) default to these same
-# constants, so tuning the ladder here retunes every backend together.
+# (LADDER_RUNGS - 1) ... LADDER_JMAX].
 LADDER_JMAX = 2
 LADDER_RUNGS = 5
 
@@ -101,6 +99,39 @@ def nfa_scores(
     return score, thr_sq
 
 
+def ladder_rank(res_sq: jnp.ndarray, valid: jnp.ndarray,
+                threshold_sq: float) -> jnp.ndarray:
+    """Pre-rank of each model: the integral of its inlier-count curve over
+    the geometric threshold ladder threshold_sq * 4^j,
+    j in [LADDER_JMAX - LADDER_RUNGS + 1, LADDER_JMAX]. res_sq (Hm, M),
+    valid (M,) -> (Hm,) f32 rung counts summed over valid residuals.
+
+    A model must fit tightly AND broadly to rank high — counting at a
+    single loose gate lets sloppy models that grab accidental outliers
+    outrank the exact model, and a single tight gate is blind when the
+    data's noise exceeds it (the adaptive-up case NFA exists for).
+    Ladder counting in ONE elementwise pass: for geometric rungs t*4^j,
+    j in [jmin, jmax], the number of rungs a residual clears is
+      #{j : res < t*4^j} = clip(jmax - floor(log4(res / t)), 0, n)
+    — replacing per-rung (Hm, M) compare+reduce passes (each pass is
+    memory-bound). One log2 + clip costs less than two passes.
+    Rung range [-2, 2] around the nominal gate (top rung 4^2 x the seed
+    threshold, e.g. a 16 px epipolar band for a 4 px gate): wide enough
+    that models separate on the loose rungs when the data's noise exceeds
+    the gate (the adaptive-up regime NFA exists for — pinned by the
+    50-scene exhaustive-winner property test up to 3x-gate noise), tight
+    enough that the rank prefers exact models. Wider ladders (jmax 3-6)
+    and a data-derived rung were tried: both shuffle NFA tie-breaks toward
+    broader models whose LM refinement converges more slowly, with no
+    winner-quality gain on the property test.
+    """
+    v = jnp.log2(jnp.maximum(res_sq, 1e-30)) - jnp.log2(
+        jnp.float32(threshold_sq))
+    cnt = jnp.clip(jnp.float32(LADDER_JMAX) - jnp.floor(v * 0.5), 0.0,
+                   jnp.float32(LADDER_RUNGS))
+    return jnp.sum(jnp.where(valid[None, :], cnt, 0.0), axis=1)
+
+
 def _distinct_positions(u: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """Floyd's algorithm: S distinct uniform positions in [0, n) from S
     uniforms. Fixed shape, O(S^2) compares (S <= 8 in practice)."""
@@ -122,10 +153,8 @@ def _distinct_positions(u: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
 
 def _pack_valid_first(valid: jnp.ndarray) -> jnp.ndarray:
     """Stable index order with valid entries first — equivalent to
-    argsort(~valid, stable) but built from two cumsums + one scatter: a
-    1024-element bitonic argsort costs ~55 SEQUENTIAL kernel stages on TPU
-    (~40 us of pure latency in the per-frame RANSAC path); the scan-based
-    pack is ~4 ops."""
+    argsort(~valid, stable) but built from two cumsums + one scatter
+    instead of a sort."""
     n = valid.shape[0]
     pos_valid = jnp.cumsum(valid.astype(jnp.int32)) - 1
     n_valid = pos_valid[-1] + 1
@@ -170,12 +199,6 @@ def ransac(
                                     # (Hm, M) residuals in one shot
     rank_scorer: Callable = None,   # optional CHEAP residuals used only for
                                     # the NFA candidate pre-rank ladder
-    batch_solver: Callable = None,  # optional all-samples solver:
-                                    # (gathered data (B, S, ...)) ->
-                                    # (models (B, H, ...), valid (B, H))
-    rank_fn: Callable = None,       # optional FUSED pre-rank: (models
-                                    # (Hm, ...), valid, data...) -> (Hm,)
-                                    # ladder rank, no (Hm, M) materialized
 ) -> RansacResult:
     """Generic batched RANSAC.
 
@@ -186,27 +209,20 @@ def ransac(
     batch_scorer: optional all-models scorer. vmap(scorer) evaluates each
       model's (M,) residuals independently — for projective/epipolar models
       that shape lowers to thousands of tiny K=3 contractions; a hand-
-      batched formulation (one (M, 3) x (3, 3*Hm) MXU matmul + elementwise
-      epilogue) scores the full (Hm, M) matrix ~7x faster. Must agree with
+      batched formulation (one (M, 3) x (3, 3*Hm) matmul + elementwise
+      epilogue) scores the full (Hm, M) matrix at once. Must agree with
       `scorer` closely enough that candidate RANKING is preserved — the
       quadratic-form scorers deviate up to ~2e-3 relative on LARGE
       (far-outlier) residuals (denominator cancellation; see their
       docstrings). All exact quantities (final inlier classification,
       adaptive thresholds via the winning model) always use `scorer`.
-    rank_scorer: optional cheap (e.g. bf16-matmul) all-models scorer used
+    rank_scorer: optional cheap (DEFAULT-precision matmul) all-models scorer used
       ONLY for the NFA pre-rank ladder. With it, the full-precision
       residual matrix is computed for just the top-`_NFA_CANDIDATES`
       models, so exact quantities (NFA scores, adaptive thresholds, inlier
       sets) never see the cheap arithmetic — it can only perturb WHICH
       models enter the top-32 (same approximation class as the ladder
       itself; the pre-rank property test pins winner stability).
-    rank_fn: optional fully FUSED ladder rank (e.g. the Pallas kernel in
-      ops/ransac_rank.py): computes the (Hm,) rank directly without ever
-      materializing the (Hm, M) residual matrix in HBM — the matrix is
-      pure bandwidth and dominates the batched-serving path. Must agree
-      with the ladder-over-rank_scorer form on WHICH models enter the
-      top-32 (the fused kernel is f32-exact, so it is at least as good);
-      exact NFA quantities still come from `scorer`/`batch_scorer`.
 
     scoring="count" ranks models by inliers under the fixed threshold;
     scoring="nfa" ranks by a-contrario NFA with a per-model ADAPTIVE
@@ -218,14 +234,7 @@ def ransac(
     idx = sample_indices(key, valid, num_hypotheses, sample_size)  # (B, S)
 
     gathered = tuple(jax.tree_util.tree_map(lambda a: a[idx], d) for d in data)
-    # batch_solver (when provided) may use a hand-batched kernel (e.g. the
-    # 5-point Pallas polish); it must emit the same models as vmap(solver)
-    # up to which member of a converged solution pair a marginal seed lands
-    # on (tests/test_robust.py pins per-sample solution capture)
-    if batch_solver is not None:
-        models, model_valid = batch_solver(*gathered)
-    else:
-        models, model_valid = jax.vmap(solver)(*gathered)  # (B, H, ...), (B, H)
+    models, model_valid = jax.vmap(solver)(*gathered)  # (B, H, ...), (B, H)
 
     flat_models = jax.tree_util.tree_map(
         lambda a: a.reshape((-1,) + a.shape[2:]), models
@@ -245,7 +254,7 @@ def ransac(
         #
         # Cost shape: the exact NFA curve needs each model's residuals fully
         # SORTED — (Hm, M) sorts dominate everything else at reference
-        # capacity (~4 ms at Hm=1024, M=5000). Mirroring sequential
+        # capacity (Hm=1024, M=5000). Mirroring sequential
         # ACRANSAC's early rejection (it only evaluates the full NFA for
         # models that beat the incumbent), models are pre-ranked by cheap
         # threshold-ladder inlier counts and the exact NFA runs on the TOP
@@ -256,44 +265,10 @@ def ransac(
         # (tests/test_robust.py pins winner equality against exhaustive NFA
         # across seeds at reference capacity).
         rank_res = (
-            None if rank_fn is not None
-            else rank_scorer(flat_models, *data) if rank_scorer is not None
+            rank_scorer(flat_models, *data) if rank_scorer is not None
             else score_all(flat_models)
         )                                                           # (Hm, M)
-        # rank = integral of the inlier-count curve over a geometric
-        # threshold ladder around the nominal gate. A model must fit tightly
-        # AND broadly to rank high — counting at a single loose gate lets
-        # sloppy models that grab accidental outliers outrank the exact
-        # model, and a single tight gate is blind when the data's noise
-        # exceeds it (the adaptive-up case NFA exists for).
-        # Ladder counting in ONE elementwise pass: for geometric rungs
-        # t*4^j, j in [jmin, jmax], the number of rungs a residual clears is
-        #   #{j : res < t*4^j} = clip(jmax - floor(log4(res / t)), 0, n)
-        # — replacing per-rung (Hm, M) compare+reduce passes (each pass is
-        # HBM-bound; at Hm=1024 the 5-pass ladder cost ~0.1 ms of the
-        # per-frame P3P budget). One log2 + clip costs less than two passes.
-        # Rung range [-2, 2] around the nominal gate (top rung 4^2 x the
-        # seed threshold, e.g. a 16 px epipolar band for a 4 px gate): wide
-        # enough that models separate on the loose rungs when the data's
-        # noise exceeds the gate (the adaptive-up regime NFA exists for —
-        # pinned by the 50-scene exhaustive-winner property test up to
-        # 3x-gate noise), tight enough that the rank prefers exact models.
-        # Wider ladders (jmax 3-6) and a data-derived rung were tried: both
-        # shuffle NFA tie-breaks toward broader models whose LM refinement
-        # converges measurably slower (+0.2 ms on the per-frame P3P path)
-        # with no winner-quality gain on the property test.
-        jmax, n_rungs = LADDER_JMAX, LADDER_RUNGS
-        if rank_fn is not None:
-            rank = rank_fn(flat_models, valid, *data)
-        else:
-            v = jnp.log2(jnp.maximum(rank_res, 1e-30)) - jnp.log2(
-                jnp.float32(threshold_sq)
-            )
-            cnt = jnp.clip(
-                jnp.float32(jmax) - jnp.floor(v * 0.5), 0.0,
-                jnp.float32(n_rungs),
-            )
-            rank = jnp.sum(jnp.where(valid[None, :], cnt, 0.0), axis=1)
+        rank = ladder_rank(rank_res, valid, threshold_sq)
         rank = jnp.where(flat_valid, rank, -1)
         k_nfa = min(_NFA_CANDIDATES, rank.shape[0])
         _, cand = jax.lax.top_k(rank, k_nfa)
@@ -302,8 +277,7 @@ def ransac(
             lambda a: a[cand], flat_models
         )
         cand_res = (
-            score_all(cand_models)
-            if (rank_scorer is not None or rank_fn is not None)
+            score_all(cand_models) if rank_scorer is not None
             else rank_res[cand]
         )
         score, thr = nfa_scores(

@@ -26,7 +26,6 @@ from coloc_tpu.geometry import essential as ess
 from coloc_tpu.geometry import fivept
 from coloc_tpu.geometry import homography as homog
 from coloc_tpu.geometry import p3p as p3p_ops
-from coloc_tpu.ops import ransac_rank
 from coloc_tpu.ransac import RansacResult, ransac
 from coloc_tpu.types import Pose, TwoViewGeometry
 
@@ -78,21 +77,12 @@ def relative_pose_essential(
         )
 
     def rank_scorer(Es, a1, a2):
-        # bf16 matmuls: feeds only the NFA candidate pre-rank ladder
+        # DEFAULT-precision matmuls (TF32 on the GPU): feeds only the
+        # NFA candidate pre-rank ladder
         return ess.symmetric_epipolar_distance_sq_batch(
             Es, a1, a2, f1_sq, f2_sq, precision=jax.lax.Precision.DEFAULT
         )
 
-    # fused Pallas pre-rank: 5-pt emits up to 30 models/sample, so the
-    # (Hm, M) ladder planes are the call's dominant HBM traffic
-    # (ops/ransac_rank.py)
-    rank_fn = None
-    if ransac_rank.available():
-
-        def rank_fn(Es, valid_c, a1, a2):
-            return ransac_rank.epipolar_ladder_rank(
-                Es, a1, a2, valid_c, f1_sq, f2_sq, thr_sq
-            )
 
     # log_alpha0 for point-to-line error in PIXEL units
     A_px = (2.0 * cam1.cx) * (2.0 * cam1.cy)
@@ -103,7 +93,6 @@ def relative_pose_essential(
         threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
         scoring=opts.scoring, log_alpha0=jnp.log10(2.0 * D_px / A_px),
         error_dim=1.0, batch_scorer=batch_scorer, rank_scorer=rank_scorer,
-        batch_solver=fivept.five_point_batch, rank_fn=rank_fn,
     )
 
     R, t = ess.decompose_essential(res.model, x1, x2, res.inliers)
@@ -157,20 +146,13 @@ def relative_pose_fundamental(
         return ess.symmetric_epipolar_distance_sq_batch(Fs, a1, a2)
 
     def rank_scorer(Fs, a1, a2):
-        # bf16 matmuls: feeds only the NFA candidate pre-rank ladder
+        # DEFAULT-precision matmuls (TF32 on the GPU): feeds only the
+        # NFA candidate pre-rank ladder
         return ess.symmetric_epipolar_distance_sq_batch(
             Fs, a1, a2, precision=jax.lax.Precision.DEFAULT
         )
 
     thr_sq = opts.essential_threshold ** 2
-
-    rank_fn = None
-    if ransac_rank.available():
-
-        def rank_fn(Fs, valid_c, a1, a2):
-            return ransac_rank.epipolar_ladder_rank(
-                Fs, a1, a2, valid_c, 1.0, 1.0, thr_sq,
-            )
 
     # log_alpha0 for point-to-line error in PIXEL units
     A_px = (2.0 * cam1.cx) * (2.0 * cam1.cy)
@@ -182,7 +164,6 @@ def relative_pose_fundamental(
         inlier_multiple=opts.inlier_multiple,
         scoring=opts.scoring, log_alpha0=jnp.log10(2.0 * D_px / A_px),
         error_dim=1.0, batch_scorer=batch_scorer, rank_scorer=rank_scorer,
-        rank_fn=rank_fn,
     )
     # least-squares re-fit over the inlier set (see essential path)
     F_refit = ess.fundamental_8pt(u1, u2, weights=res.inliers.astype(jnp.float32))
@@ -227,8 +208,8 @@ def _p3p_batch_residuals(
     (tests/test_robust.py::TestBatchScorerParity pins this).
 
     precision: None inherits the library-wide HIGHEST; pass
-    jax.lax.Precision.DEFAULT for single-pass bf16 matmuls when the
-    residuals only feed the RANSAC pre-rank ladder.
+    jax.lax.Precision.DEFAULT for single-pass (TF32 on the GPU) matmuls
+    when the residuals only feed the RANSAC pre-rank ladder.
     """
     Hm = flats.shape[0]
     R = flats[:, :9].reshape(Hm, 3, 3)
@@ -286,23 +267,12 @@ def absolute_pose_p3p(
         return _p3p_batch_residuals(flats, Xw, bearings, _mean_focal(cam))
 
     def rank_scorer(flats, Xw, bearings):
-        # bf16 matmuls: feeds only the NFA candidate pre-rank ladder
+        # DEFAULT-precision matmuls (TF32 on the GPU): feeds only the
+        # NFA candidate pre-rank ladder
         return _p3p_batch_residuals(
             flats, Xw, bearings, _mean_focal(cam),
             precision=jax.lax.Precision.DEFAULT,
         )
-
-    # fused Pallas pre-rank: the ladder rank without the (Hm, M) residual
-    # matrix in HBM — the matrix is pure bandwidth and turns super-linear
-    # under the batched-serving vmap (ops/ransac_rank.py)
-    rank_fn = None
-    if ransac_rank.available():
-
-        def rank_fn(flats, valid_c, Xw, bearings):
-            return ransac_rank.p3p_ladder_rank(
-                flats, Xw, bearings, valid_c, _mean_focal(cam),
-                opts.p3p_threshold ** 2,
-            )
 
     res = ransac(
         key, (X_world, b), mask, solver, scorer,
@@ -311,7 +281,6 @@ def absolute_pose_p3p(
         inlier_multiple=opts.inlier_multiple,
         scoring=opts.scoring, log_alpha0=_point_log_alpha0(cam),
         error_dim=2.0, batch_scorer=batch_scorer, rank_scorer=rank_scorer,
-        batch_solver=p3p_ops.p3p_flats_batch, rank_fn=rank_fn,
     )
     pose = Pose(R=res.model[:9].reshape(3, 3), C=res.model[9:])
     return pose, res.inliers, res.n_inliers, res.success
@@ -347,18 +316,11 @@ def relative_pose_homography(
         return f2_sq * homog.transfer_error_sq_batch(Hs, a1, a2)
 
     def rank_scorer(Hs, a1, a2):
-        # bf16 matmuls: feeds only the NFA candidate pre-rank ladder
+        # DEFAULT-precision matmuls (TF32 on the GPU): feeds only the
+        # NFA candidate pre-rank ladder
         return f2_sq * homog.transfer_error_sq_batch(
             Hs, a1, a2, precision=jax.lax.Precision.DEFAULT
         )
-
-    rank_fn = None
-    if ransac_rank.available():
-
-        def rank_fn(Hs, valid_c, a1, a2):
-            return ransac_rank.homography_ladder_rank(
-                Hs, a1, a2, valid_c, _mean_focal(cam2), thr_sq
-            )
 
     # log_alpha0 for POINT transfer error in image-2 PIXEL units
     A_px = (2.0 * cam2.cx) * (2.0 * cam2.cy)
@@ -368,7 +330,6 @@ def relative_pose_homography(
         threshold_sq=thr_sq, inlier_multiple=opts.inlier_multiple,
         scoring=opts.scoring, log_alpha0=jnp.log10(jnp.pi / A_px),
         error_dim=2.0, batch_scorer=batch_scorer, rank_scorer=rank_scorer,
-        rank_fn=rank_fn,
     )
     # least-squares re-fit over the inlier set before decomposition (the
     # minimal 4-point H limits translation-direction accuracy; same

@@ -11,7 +11,7 @@ reprojection RMSE (:223). Call-site patterns replicated:
   - pose-only, structure fixed (Localizer.hpp:132-133)
   - poses-only multi-view (inter-drone refinement, coloc.hpp:339)
 
-TPU-first: scenes here are tiny (<=8 views, <=4096 landmarks), so the
+Device shape: scenes here are tiny (<=8 views, <=4096 landmarks), so the
 "sparse" Schur solve is a dense (6V x 6V) solve after eliminating landmark
 blocks — all fixed-shape, jit/vmap-friendly. Robustness = Huber IRLS weights.
 LM damping handled with a fixed-iteration accept/reject scan (no

@@ -12,7 +12,7 @@ Reference parity: Reconstructor.hpp —
 Plus colocData.hpp:89-121 setupMapDatabase: flat descriptor bank from the
 FIRST observation of each landmark + landmark index.
 
-TPU-first: the scene is a fixed-capacity pytree; triangulation gates become
+Device shape: the scene is a fixed-capacity pytree; triangulation gates become
 validity-mask updates; landmark slots are keyed by seed-view feature index.
 """
 

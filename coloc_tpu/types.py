@@ -4,7 +4,7 @@ Reference parity: `colocData.hpp` — the shared blackboard holding per-drone
 feature regions, putative/geometric matches, relative poses, the SfM scene,
 and the map descriptor database (`setupMapDatabase`, colocData.hpp:89-121).
 
-TPU-first redesign: every variable-length container becomes a fixed-capacity
+Fixed-shape redesign: every variable-length container becomes a fixed-capacity
 array plus a validity mask (SURVEY.md §7.1.1). Matches use the CUDAK2NN
 convention of an int32 index per query with -1 for "no match"
 (CUDAK2NN.cu:75), which is already fixed-shape.

@@ -1,12 +1,10 @@
 """Batched map-localization serving: B independent camera streams
-matched + localized against ONE resident HBM map bank per device dispatch.
+matched + localized against ONE device-resident map bank per dispatch.
 
 This is the deployment shape for "many cameras, one map": the bank is
 packed once (the reference's resident `setMapData` pattern,
 GPUMatcher.hpp:110-117), and each call runs the batched frontend + 2-NN +
 P3P + refine for all B streams fused into a single device program.
-Measured on TPU v5e: ~0.085 ms/stream at B=8 (see README performance
-table).
 """
 
 import sys as _sys

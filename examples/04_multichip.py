@@ -1,12 +1,12 @@
 """The drone axis as a device-mesh axis: run the full collaborative step
 (per-drone intra localization + Kalman update, then the complete
-inter-drone exchange — descriptor-bank ppermute over ICI, pairwise match,
+inter-drone exchange — descriptor-bank ppermute, pairwise match,
 relative pose, temporary reconstruction, scale alignment, pose-only
 refine, covariance intersection) sharded over an 8-device mesh.
 
-On a single-chip host this re-execs itself onto 8 virtual CPU devices
-(the same mechanism the test suite and the driver's multi-chip dry-run
-use); on a real v5e-8 slice the identical program rides ICI.
+With fewer than 8 devices this re-execs itself onto 8 virtual CPU devices
+(the same mechanism the test suite and the multi-device dry-run use); on 8
+GPUs the identical program runs its collectives over NVLink.
 
 Reference analog: the robots' ROS topic exchange (SURVEY §2.2) — here the
 collective carries ~64 B/keypoint of descriptors plus pose + covariance.
@@ -92,13 +92,12 @@ def main():
     if len(jax.devices()) >= N_DEVICES:
         run_mesh()
         return
-    # single-chip host: re-exec with a virtual CPU mesh (env must be set
+    # too few devices: re-exec with a virtual CPU mesh (env must be set
     # before the JAX backend initializes)
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + f" --xla_force_host_platform_device_count={N_DEVICES}").strip()
     env["JAX_PLATFORMS"] = "cpu"
-    env.setdefault("COLOC_TPU_INTERPRET", "1")
     env["COLOC_EXAMPLE_MESH_CHILD"] = "1"
     print(f"(single device found - re-running on {N_DEVICES} virtual CPU devices)")
     sys.exit(subprocess.run([sys.executable, os.path.abspath(__file__)],

@@ -10,13 +10,22 @@ its peer's bundle pulled off the wire — `coloc_tpu.distributed.DronePeer`.
 This is the deployment the reference's ROS design gestured at but never
 ran (it loops both drones inside one process, coloc.hpp:128-148).
 
-Run `make -C coloc_tpu/native` first if the transport library is missing.
+All three JAX processes share one GPU here, and a JAX process reserves
+three quarters of a card's memory when it first uses it unless told
+otherwise. So every process, the parent included, gets an explicit
+XLA_PYTHON_CLIENT_MEM_FRACTION share of 0.3 (0.9 in all). Peers on
+separate cards would instead pick their card with CUDA_VISIBLE_DEVICES.
+
+The transport library builds from coloc_tpu/native on first use.
 """
 
+import os as _os
 import sys as _sys
 from pathlib import Path as _Path
 
 _sys.path.insert(0, str(_Path(__file__).resolve().parent.parent))  # repo root (no install needed)
+# this process's share of the card; set before JAX touches the device
+_os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.3")
 
 
 import subprocess
@@ -98,6 +107,8 @@ def main():
         env = dict(os.environ)
         env["PYTHONPATH"] = (str(repo) + os.pathsep + env["PYTHONPATH"]
                              if env.get("PYTHONPATH") else str(repo))
+        # each peer's share of the card (parent 0.3 + 2 x 0.3 = 0.9)
+        env["XLA_PYTHON_CLIENT_MEM_FRACTION"] = "0.3"
 
         with transport.Broker() as broker:
             procs = []

@@ -129,7 +129,7 @@ class TestPeerEquivalence:
             np.asarray(fused.cov), np.asarray(host.cov), atol=1e-5
         )
 
-        # staleness gate (VERDICT r4 item 7): the SAME bundle stamped an
+        # staleness gate: the SAME bundle stamped an
         # hour ago must be refused before any compute; stamped fresh it
         # fuses; timestamp 0.0 (unstamped) is exempt (used above)
         import time as _time
@@ -242,7 +242,7 @@ def test_two_process_peers(dataset, tmp_path):
             out_path = tmp_path / f"out{d}.npz"
             import os
             repo = str(pathlib.Path(__file__).resolve().parent.parent)
-            env = {"JAX_PLATFORMS": "cpu", "COLOC_TPU_INTERPRET": "1",
+            env = {"JAX_PLATFORMS": "cpu",
                    "PATH": "/usr/bin:/bin", "PYTHONPATH": repo}
             env.update({k: v for k, v in os.environ.items()
                         if k not in env and k != "XLA_FLAGS"})
@@ -344,7 +344,7 @@ _RESTART_PEER_SCRIPT = textwrap.dedent("""
 @pytest.mark.skipif(not transport.available(),
                     reason="native transport library not built")
 def test_two_process_peers_survive_broker_restart(tmp_path):
-    """Fleet resilience (VERDICT r4 item 7): two peer processes fuse once,
+    """Fleet resilience: two peer processes fuse once,
     the harness KILLS the broker and restarts it on the same port, and the
     peers — via Node(reconnect=True) redial + resubscribe and the bundle
     re-offer loop — fuse again over the fresh broker."""
@@ -384,7 +384,7 @@ def test_two_process_peers_survive_broker_restart(tmp_path):
             )
             out_path = tmp_path / f"rout{d}.npz"
             repo = str(pathlib.Path(__file__).resolve().parent.parent)
-            env = {"JAX_PLATFORMS": "cpu", "COLOC_TPU_INTERPRET": "1",
+            env = {"JAX_PLATFORMS": "cpu",
                    "PATH": "/usr/bin:/bin", "PYTHONPATH": repo}
             env.update({k: v for k, v in os.environ.items()
                         if k not in env and k != "XLA_FLAGS"})

@@ -64,7 +64,7 @@ class TestEurocIngest:
 
     def test_groundtruth_load_and_association(self, tmp_path):
         """ASL ground-truth csv ingest + nearest-timestamp association
-        (the --euroc ATE/RPE runpath, VERDICT r2 item 7)."""
+        (the --euroc ATE/RPE runpath)."""
         scene = synthetic.make_scene(H, W, K, seed=4)
         root = str(tmp_path / "seq0")
         _write_sequence(root, 1_000_000_000, 4, scene, 0)
@@ -98,7 +98,7 @@ class TestCliEurocRunpath:
         """End-to-end --euroc runpath: two mock ASL sequences with ground
         truth -> session runs -> per-drone ATE/RPE lines print (the
         BASELINE 'within 1%' claim is checkable the moment real data is
-        mounted; VERDICT r2 item 7)."""
+        mounted)."""
         from coloc_tpu import cli
         from coloc_tpu.io.synthetic import trajectory
 

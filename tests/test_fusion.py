@@ -107,7 +107,7 @@ class TestCovInt:
 
 
 class TestGateCharacterization:
-    """VERDICT #10: pin the gate's behavior on nominal vs outlier
+    """Pin the gate's behavior on nominal vs outlier
     measurements with realistic BA covariances.
 
     Energy gate (reference parity, innv^T S innv at threshold 10 with

@@ -1,7 +1,9 @@
-"""Hamming 2-NN matcher tests: exact popcount oracle vs matmul path vs Pallas
-kernel (interpreter mode on CPU), plus margin/ratio accept semantics
-(SURVEY.md §4: 'Hamming 2-NN margin semantics' unit tests)."""
+"""Hamming 2-NN matcher tests: exact popcount oracle vs the plain int8 path
+vs the Pallas kernel (interpreter mode on CPU, compiled on a GPU), plus
+margin/ratio accept semantics (SURVEY.md §4: 'Hamming 2-NN margin
+semantics' unit tests)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,9 @@ def random_desc(rng, n):
 
 
 def brute_force_2nn(qd, td, t_valid):
-    """Numpy oracle: exact popcount distances."""
+    """Numpy oracle: exact popcount distances; an invalid train row counts
+    as _INVALID_DIST, ties go to the lowest index (stable sort), idx = -1
+    without a valid row."""
     q = np.asarray(qd)
     t = np.asarray(td)
     Q, T = q.shape[0], t.shape[0]
@@ -25,12 +29,43 @@ def brute_force_2nn(qd, td, t_valid):
     for j in range(T):
         x = q ^ t[j][None, :]
         dist[:, j] = np.unpackbits(x.view(np.uint8), axis=1).sum(1)
-    dist = dist + np.where(np.asarray(t_valid), 0, 2048)[None, :]
+    dist = np.where(np.asarray(t_valid)[None, :], dist, 2048)
     order = np.argsort(dist, axis=1, kind="stable")
     best_idx = order[:, 0]
     best = dist[np.arange(Q), best_idx]
-    second = dist[np.arange(Q), order[:, 1]]
-    return best_idx, best, second
+    second = (dist[np.arange(Q), order[:, 1]] if T > 1
+              else np.full(Q, 2048))
+    return np.where(best < 2048, best_idx, -1), best, second
+
+
+def planted_problem(rng, Q, T):
+    """Random descriptors with planted duplicates, ties and invalid rows on
+    both sides."""
+    td = np.array(random_desc(rng, T))
+    qd = np.array(random_desc(rng, Q))
+    n = max(min(Q // 4, T // 4), 1) if T >= 4 else 0
+    if n:
+        rows = rng.choice(T, size=3 * n, replace=False)
+        src, dup, tie = rows[:n], rows[n:2 * n], rows[2 * n:]
+        td[dup] = td[src]                  # duplicated best
+        qd[:n] = td[src]
+        qd[n:2 * n] = td[tie]              # two rows 10 bits away
+        td[tie, 0] ^= np.uint32(0x3FF)
+        twin = (tie + T // 2) % T
+        td[twin] = qd[n:2 * n]
+        td[twin, 0] ^= np.uint32(0xFFC00)
+        tv = rng.random(T) > 0.1
+        tv[src[: max(n // 4, 1)]] = False
+    else:
+        tv = np.ones(T, bool)
+    qv = rng.random(Q) > 0.1
+    return (jnp.asarray(qd), jnp.asarray(td), jnp.asarray(qv),
+            jnp.asarray(tv))
+
+
+def assert_same(a, b):
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
 class TestUnpack:
@@ -60,11 +95,12 @@ class TestXLAPath:
         qd, td = random_desc(rng, 33), random_desc(rng, 47)
         qv = jnp.ones(33, bool)
         tv = jnp.asarray(rng.random(47) > 0.2)
-        idx, best, second = hamming.hamming_2nn_xla(qd, td, qv, tv)
+        idx, best, second = hamming.hamming_2nn_plain(qd, td, qv, tv)
         oidx, obest, osecond = brute_force_2nn(qd, td, tv)
         np.testing.assert_array_equal(np.asarray(best), obest)
         np.testing.assert_array_equal(np.asarray(second), osecond)
-        # best index must achieve the best distance (ties allowed)
+        np.testing.assert_array_equal(np.asarray(idx), oidx)
+        # best index must achieve the best distance
         d = np.array([
             int(hamming.hamming_distance(qd[i], td[int(np.asarray(idx)[i])]))
             for i in range(33)
@@ -74,41 +110,32 @@ class TestXLAPath:
 
 class TestPallasKernel:
     def test_vs_xla_path(self, rng):
-        """Pallas kernel (interpret mode) must agree with the XLA path,
-        including padding/masking behavior at non-tile-multiple sizes."""
+        """Pallas kernel (interpret mode) must agree bit for bit with the
+        plain path, including padding/masking behavior at non-tile-multiple
+        sizes."""
         qd, td = random_desc(rng, 100), random_desc(rng, 300)
         qv = jnp.asarray(rng.random(100) > 0.1)
         tv = jnp.asarray(rng.random(300) > 0.1)
-        xi, xb, xs = hamming.hamming_2nn_xla(qd, td, qv, tv)
-        pi, pb, ps = hamming.hamming_2nn_pallas(qd, td, qv, tv, interpret=True)
-        np.testing.assert_array_equal(np.asarray(xb), np.asarray(pb))
-        np.testing.assert_array_equal(np.asarray(xs), np.asarray(ps))
-        # indices may differ only where distances tie
-        diff = np.asarray(xi) != np.asarray(pi)
-        if diff.any():
-            for i in np.nonzero(diff)[0]:
-                d1 = int(hamming.hamming_distance(qd[i], td[int(np.asarray(xi)[i])]))
-                d2 = int(hamming.hamming_distance(qd[i], td[int(np.asarray(pi)[i])]))
-                assert d1 == d2
+        assert_same(hamming.hamming_2nn(qd, td, qv, tv, interpret=True),
+                    hamming.hamming_2nn_plain(qd, td, qv, tv))
 
     def test_exact_match_found(self, rng):
         """Planted identical descriptors must match with distance 0."""
         td = random_desc(rng, 600)
-        sel = rng.integers(0, 600, size=40)
+        sel = rng.choice(600, size=40, replace=False)
         qd = td[jnp.asarray(sel)]
         qv = jnp.ones(40, bool)
         tv = jnp.ones(600, bool)
-        pi, pb, ps = hamming.hamming_2nn_pallas(qd, td, qv, tv, interpret=True)
+        pi, pb, ps = hamming.hamming_2nn(qd, td, qv, tv, interpret=True)
         np.testing.assert_array_equal(np.asarray(pb), np.zeros(40))
         np.testing.assert_array_equal(np.asarray(pi), sel)
 
     def test_duplicate_and_tie_semantics(self, rng):
         """Regression for the packed-key epilogue: a duplicated best
         descriptor must leave its twin as second-best (CUDAK2NN semantics),
-        ties must resolve to the LOWEST train index (incl. across train
-        tiles), and invalid rows must shift distances by exactly
-        _INVALID_DIST."""
-        T = 4200  # > _TT so duplicates land in different kernel tiles
+        ties must resolve to the LOWEST train index (incl. across bank tiles
+        and splits), and invalid rows must never match."""
+        T = 4200  # many bank tiles and several splits
         td = random_desc(rng, T)
         # plant: query 0's best appears at train rows 7, 2100 and 4100
         td = td.at[2100].set(td[7])
@@ -119,16 +146,14 @@ class TestPallasKernel:
         tv[30:60] = False  # invalidates query 1's own row (50)
         tv = jnp.asarray(tv)
 
-        pi, pb, ps = hamming.hamming_2nn_pallas(qd, td, qv, tv, interpret=True)
+        pi, pb, ps = hamming.hamming_2nn(qd, td, qv, tv, interpret=True)
         # duplicate best: dist 0 at the lowest copy, second ALSO 0
         assert int(pi[0]) == 7
         assert int(pb[0]) == 0 and int(ps[0]) == 0
-        # query 1's exact row is invalid -> its penalized self-distance is
-        # 0 + _INVALID_DIST; the true best is whatever valid row is nearest
-        xi, xb, xs = hamming.hamming_2nn_xla(qd, td, qv, tv)
-        np.testing.assert_array_equal(np.asarray(pb), np.asarray(xb))
-        np.testing.assert_array_equal(np.asarray(ps), np.asarray(xs))
-        np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+        # query 1's exact row is invalid; the true best is whatever valid
+        # row is nearest
+        assert int(pi[1]) != 50 and int(pb[1]) > 0
+        assert_same((pi, pb, ps), brute_force_2nn(qd, td, tv))
 
     def test_all_invalid_targets(self, rng):
         """With every train row invalid the kernel must report idx=-1 and
@@ -137,12 +162,79 @@ class TestPallasKernel:
         qd, td = random_desc(rng, 8), random_desc(rng, 100)
         qv = jnp.ones(8, bool)
         tv = jnp.zeros(100, bool)
-        pi, pb, ps = hamming.hamming_2nn_pallas(qd, td, qv, tv, interpret=True)
-        np.testing.assert_array_equal(np.asarray(pi), -np.ones(8))
-        np.testing.assert_array_equal(
-            np.asarray(pb), np.full(8, hamming._INVALID_DIST))
-        np.testing.assert_array_equal(
-            np.asarray(ps), np.full(8, hamming._INVALID_DIST))
+        want = (-np.ones(8), np.full(8, hamming._INVALID_DIST),
+                np.full(8, hamming._INVALID_DIST))
+        assert_same(hamming.hamming_2nn(qd, td, qv, tv, interpret=True), want)
+        assert_same(hamming.hamming_2nn_plain(qd, td, qv, tv), want)
+
+    @pytest.mark.parametrize("Q,T,tiles", [
+        (1, 1, hamming.Tiles()),
+        (3, 5, hamming.Tiles(programs=1)),
+        (65, 1000, hamming.Tiles(programs=1)),          # one split
+        (100, 3000, hamming.Tiles(programs=8)),         # a few splits
+        (130, 2100, hamming.Tiles()),                   # default grid
+        (33, 700, hamming.Tiles(bq=32, bt=128, programs=1024)),  # max splits
+    ])
+    def test_planted_cases_match_oracle(self, rng, Q, T, tiles):
+        """Q and T off tile multiples, one to many bank splits, planted
+        duplicates, ties and invalid rows on both sides: the kernel, the
+        plain path and the popcount oracle agree bit for bit."""
+        qd, td, qv, tv = planted_problem(rng, Q, T)
+        Tp = hamming._round_up(T, hamming._BANK_ALIGN)
+        st = jnp.pad(hamming.unpack_bipolar(td), ((0, Tp - T), (0, 0)))
+        pen = hamming._penrcol_row(tv, Tp, tiles.bt)
+        Qp = hamming._round_up(Q, tiles.bq)
+        sq = jnp.pad(hamming.unpack_bipolar(qd), ((0, Qp - Q), (0, 0)))
+        idx, best, second = hamming._k2nn(sq, st, pen, interpret=True,
+                                          tiles=tiles)
+        got = hamming._mask_queries(qv, idx[:Q], best[:Q], second[:Q])
+        oi, ob, os_ = brute_force_2nn(qd, td, tv)
+        inv = hamming._INVALID_DIST
+        want = (oi, np.where(qv, ob, inv), np.where(qv, os_, inv))
+        assert_same(got, want)
+        assert_same(hamming.hamming_2nn_plain(qd, td, qv, tv), want)
+
+    def test_vmap_matches_plain(self, rng):
+        """Under jax.vmap (the batched drone step and serving) the kernel
+        keeps its contract per batch member."""
+        qb = jnp.stack([random_desc(rng, 50), random_desc(rng, 50)])
+        qv = jnp.asarray(rng.random((2, 50)) > 0.1)
+        td = random_desc(rng, 500)
+        bank = hamming.pack_bank(td, jnp.asarray(rng.random(500) > 0.1))
+        got = jax.vmap(lambda q, v: hamming.hamming_2nn_bank(
+            q, v, bank, interpret=True))(qb, qv)
+        want = jax.vmap(lambda q, v: hamming.hamming_2nn_bank_plain(
+            q, v, bank))(qb, qv)
+        assert_same(got, want)
+
+    def test_backend_alone_chooses_path(self, rng, monkeypatch):
+        """The kernel runs when the backend is the GPU (or a test asks for
+        the interpreter); every other backend runs the plain path."""
+        calls = []
+        real = hamming._k2nn
+
+        def spy(*a, **kw):
+            calls.append(kw.get("interpret"))
+            return real(*a, **{**kw, "interpret": True})
+
+        monkeypatch.setattr(hamming, "_k2nn", spy)
+        qd, td = random_desc(rng, 20), random_desc(rng, 90)
+        qv, tv = jnp.ones(20, bool), jnp.ones(90, bool)
+        want = hamming.hamming_2nn_plain(qd, td, qv, tv)
+        assert_same(hamming.hamming_2nn(qd, td, qv, tv), want)
+        assert calls == []                      # CPU: plain path
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert_same(hamming.hamming_2nn(qd, td, qv, tv), want)
+        assert calls == [False]                 # GPU: compiled kernel
+
+    @pytest.mark.gpu
+    def test_compiled_kernel_matches_plain(self, gpu, rng):
+        """On the card: the Triton-compiled kernel against the plain path at
+        a real width."""
+        qd, td, qv, tv = planted_problem(rng, 1024, 4096)
+        bank = hamming.pack_bank(td, tv)
+        assert_same(hamming.hamming_2nn_bank_kernel(qd, qv, bank),
+                    hamming.hamming_2nn_bank_plain(qd, qv, bank))
 
 
 class TestAcceptSemantics:
@@ -204,20 +296,19 @@ class TestAcceptSemantics:
 
 class TestResidentBank:
     def test_bank_path_matches_direct(self, rng):
-        """pack_bank + hamming_2nn_bank must reproduce hamming_2nn_xla."""
+        """pack_bank + hamming_2nn_bank (kernel, interpreted) must reproduce
+        the plain 2-NN on the raw descriptors."""
         qd = random_desc(rng, 80)
         td = random_desc(rng, 300)
         qv = jnp.asarray(rng.random(80) > 0.1)
         tv = jnp.asarray(rng.random(300) > 0.1)
         bank = hamming.pack_bank(td, tv)
-        bi, bb, bs = hamming.hamming_2nn_bank(qd, qv, bank, interpret=True)
-        xi, xb, xs = hamming.hamming_2nn_xla(qd, td, qv, tv)
-        np.testing.assert_array_equal(np.asarray(bb), np.asarray(xb))
-        np.testing.assert_array_equal(np.asarray(bs), np.asarray(xs))
+        assert_same(hamming.hamming_2nn_bank(qd, qv, bank, interpret=True),
+                    hamming.hamming_2nn_plain(qd, td, qv, tv))
 
 
 class TestTwoStage:
-    """Two-stage large-bank matcher (VERDICT r4 item 8): 128-bit group
+    """Two-stage large-bank matcher: 128-bit group
     prefilter + EXACT 512-bit re-rank of the survivors. The contract under
     test: on matching-shaped banks (true matches sit well below the
     background pool) the ACCEPTED matches — and the best index/distance of
@@ -239,8 +330,7 @@ class TestTwoStage:
         return jnp.asarray(qd), jnp.asarray(td), slots
 
     def test_accepted_set_equals_bruteforce_large_bank(self, rng):
-        """Exactness test at a 256k-slot bank (CPU: the kernel runs in
-        interpret mode over the real grid; the BANK is full 256k)."""
+        """Exactness test at a 256k-slot bank (the BANK is full 256k)."""
         from coloc_tpu.matching import (
             MapDB, match_with_map, pack_map_bank_twostage,
         )
@@ -252,12 +342,11 @@ class TestTwoStage:
         tv = jnp.asarray(rng.random(T) > 0.05)
         mapdb = MapDB(X=jnp.zeros((T, 3)), desc=td, valid=tv)
 
-        # brute-force reference (XLA path — exact)
-        xi, xb, xs = hamming.hamming_2nn_xla(qd, td, qv, tv)
+        # brute-force reference (plain path — exact)
+        xi, xb, xs = hamming.hamming_2nn_plain(qd, td, qv, tv)
         # two-stage
         bank2 = hamming.pack_bank_twostage(td, tv)
-        ti_, tb, ts = hamming.hamming_2nn_twostage(qd, qv, bank2,
-                                                   interpret=True)
+        ti_, tb, ts = hamming.hamming_2nn_twostage(qd, qv, bank2)
 
         # best retrieval: exact wherever the brute-force best is a genuine
         # match (the planted low-distance hit)
@@ -305,10 +394,9 @@ class TestTwoStage:
         td = jnp.asarray(td)
         qv = jnp.ones(Q, bool)
         tv = jnp.ones(T, bool)
-        xi, xb, xs = hamming.hamming_2nn_xla(qd, td, qv, tv)
+        xi, xb, xs = hamming.hamming_2nn_plain(qd, td, qv, tv)
         bank2 = hamming.pack_bank_twostage(td, tv)
-        ti_, tb, ts = hamming.hamming_2nn_twostage(qd, qv, bank2,
-                                                   interpret=True)
+        ti_, tb, ts = hamming.hamming_2nn_twostage(qd, qv, bank2)
         has_match = np.asarray(xb) < 128    # query 0 (dup) + planted ones
         assert has_match.sum() >= 32
         np.testing.assert_array_equal(

@@ -162,3 +162,24 @@ class TestNFAScoring:
             RansacOptions(scoring="nfa"),
         )
         assert not bool(geo.success)
+
+
+class TestPGM:
+    def test_pgm_round_trip(self, tmp_path):
+        """Binary PGM written and read back with numpy alone: uint8 values
+        survive exactly, floats truncate like a uint8 cast, out-of-range
+        values clip, and a comment line in the header is skipped."""
+        from coloc_tpu.io import disk
+
+        rng = np.random.default_rng(0)
+        img = rng.uniform(-20, 280, (37, 53)).astype(np.float32)
+        path = str(tmp_path / "x.pgm")
+        disk.write_pgm(path, img)
+        back = disk.load_image(path)
+        assert back.dtype == np.float32 and back.shape == (37, 53)
+        np.testing.assert_array_equal(
+            back, np.clip(img, 0, 255).astype(np.uint8).astype(np.float32))
+        raw = open(path, "rb").read()
+        with open(path, "wb") as fh:
+            fh.write(raw.replace(b"P5\n", b"P5\n# made by a test\n", 1))
+        np.testing.assert_array_equal(disk.read_pgm(path), back)

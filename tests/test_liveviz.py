@@ -1,4 +1,4 @@
-"""Live viz streamer tests (rosUtils.hpp analog, VERDICT #9)."""
+"""Live viz streamer tests (rosUtils.hpp analog)."""
 
 import json
 import urllib.request

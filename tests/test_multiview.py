@@ -141,7 +141,7 @@ class TestMultiViewReconstruction:
         assert recovered > 30, f"only {recovered}/60 hidden landmarks recovered"
 
     def test_landmark_invisible_to_seed_views(self, rng):
-        """VERDICT r1 missing #1 acceptance: a landmark NEVER seen by EITHER
+        """A landmark NEVER seen by EITHER
         seed view must still be reconstructed via tracks through other views
         (old seed-keyed design could not represent these at all)."""
         V = 4

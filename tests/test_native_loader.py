@@ -1,4 +1,5 @@
-"""Native C++ loader tests: decode parity vs PIL, prefetch correctness."""
+"""Native C++ loader tests: decode parity vs PIL (PNG) and the numpy PGM
+reader, prefetch correctness."""
 
 import numpy as np
 import pytest
@@ -22,13 +23,24 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-def test_png_decode_matches_pil(dataset):
-    path = disk.frame_path(dataset, 0, 0)
+def test_png_decode_matches_pil(dataset, tmp_path):
+    from PIL import Image
+
+    img = disk.load_frame(dataset, 0, 0)
+    path = str(tmp_path / "frame.png")
+    Image.fromarray(img.astype(np.uint8)).save(path)
     ref = disk.load_image(path)  # PIL path
     out = native_loader.decode_image(path, H, W)
     assert out is not None
     # PNG storage is uint8; both decoders must agree exactly
     np.testing.assert_array_equal(out, ref)
+
+
+def test_pgm_decode_matches_numpy(dataset):
+    path = disk.frame_path(dataset, 1, 2, "pgm")
+    out = native_loader.decode_image(path, H, W)
+    assert out is not None
+    np.testing.assert_array_equal(out, disk.load_image(path))
 
 
 def test_prefetch_loader_all_frames(dataset):

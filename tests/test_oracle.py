@@ -345,7 +345,7 @@ def _oracle_inter_chain(s):
 
 class TestConfig4InterFusionVsOracle:
     """The collaborative core against reference-independent float64 golden
-    values (VERDICT r4 item 1): the full inter-drone fusion chain — scale
+    values: the full inter-drone fusion chain — scale
     alignment (computeScaleDifference, colocUtils.hpp:184-223), poses-only
     refine (coloc.hpp:339), ICI (CovIntersection.hpp:24-49) — on both the
     host compute core and the sharded mesh path."""
@@ -539,8 +539,7 @@ class TestConfig4InterFusionVsOracle:
 
 
 class TestConfig5SessionVsOracle:
-    """session.run's filtered trajectory against the float64 oracle filter
-    (VERDICT r4 item 1).
+    """session.run's filtered trajectory against the float64 oracle filter.
 
     Two complementary gates:
 

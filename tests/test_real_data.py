@@ -1,4 +1,4 @@
-"""Real-dataset accuracy hook (VERDICT r3 item 8, env-limited).
+"""Real-dataset accuracy hook.
 
 No real EuRoC/KITTI imagery exists in the build environment, so BASELINE's
 "pose error within 1% on EuRoC/KITTI" is exercised against synthetic

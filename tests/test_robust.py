@@ -323,7 +323,7 @@ class TestNfaAdaptiveThreshold:
         are blind). Uses a cheap synthetic model family (2-D lines,
         sample_size=2) so the property runs at full capacity — the pre-rank
         operates purely on the (Hm, M) residual matrix, independent of the
-        model family that produced it. (VERDICT r2 item 5 / ADVICE r2.)"""
+        model family that produced it."""
         from coloc_tpu.ransac import (
             _NFA_CANDIDATES, nfa_scores, ransac, sample_indices,
         )
@@ -417,7 +417,7 @@ class TestNfaAdaptiveThreshold:
 
 
 class TestBatchScorerParity:
-    """The MXU-batched all-models scorers must agree with the per-model
+    """The matmul-batched all-models scorers must agree with the per-model
     scorers they replace (ransac() classifies the winner's inliers with the
     single-model scorer, so any disagreement silently shifts NFA ranks)."""
 
@@ -480,48 +480,55 @@ class TestBatchScorerParity:
         np.testing.assert_allclose(got[keep], want[keep], rtol=3e-4, atol=1e-3)
 
     def test_five_point_pallas_captures_vmap_solutions(self, rng):
-        """The Pallas polish kernel (production TPU batch path, exercised
-        here in interpreter mode) must SOLVE every minimal sample the
-        reference vmap path solves: per-sample best held-out epipolar
-        residual < 1e-4 whenever the vmap path achieves it. Individual
-        candidates may differ (marginal split seeds can land on either
-        member of a converged twin pair; the kernel runs 5 GN steps vs the
-        XLA path's 3) — what matters to RANSAC is that the solution set per
-        sample is captured."""
+        """The batched 5-point solver (vmap of five_point, the path every
+        backend runs) must solve the minimal samples, judged by the float64
+        oracle (tests/oracle.py): in general position some valid candidate
+        matches the true essential matrix in direction and fits all eight
+        points of its sample within 0.5 px (the 5 solved + 3 held out). On
+        a plane the solution comes in twins that fit the plane equally, so
+        there only the fit is judged, and f32 polishing loses a few
+        near-double roots (RANSAC's other samples absorb them): at least
+        three in four planar samples must be solved."""
+        import oracle
+
         from coloc_tpu.geometry import fivept
 
-        B = 37  # deliberately not a multiple of the kernel lane tile
+        B = 37
         X = np.c_[rng.uniform(-3, 3, (B * 8, 2)),
                   rng.uniform(5, 15, (B * 8, 1))].reshape(B, 8, 3)
         X[B // 2:, :, 2] = 8.0  # planar half: twin-solution regime
-        x1 = jnp.asarray(X[..., :2] / X[..., 2:], jnp.float32)
-        Xc = X - [0.3, 0.05, 0.0]
-        x2 = jnp.asarray(Xc[..., :2] / Xc[..., 2:], jnp.float32)
+        C2 = np.array([0.3, 0.05, 0.0])
+        E_gt = oracle.essential_from_pose(np.eye(3), np.zeros(3), np.eye(3),
+                                          C2)
+        E_gt /= np.linalg.norm(E_gt)
+        x1 = X[..., :2] / X[..., 2:]
+        Xc = X - C2
+        x2 = Xc[..., :2] / Xc[..., 2:]
 
-        Es_p, val_p = fivept._five_point_batch_pallas(x1[:, :5], x2[:, :5])
-        Es_v, val_v = jax.vmap(fivept.five_point)(x1[:, :5], x2[:, :5])
+        Es, val = jax.vmap(fivept.five_point)(
+            jnp.asarray(x1[:, :5], jnp.float32),
+            jnp.asarray(x2[:, :5], jnp.float32))
+        Es, val = np.asarray(Es, np.float64), np.asarray(val)
+        Es /= np.linalg.norm(Es.reshape(B, 30, 9), axis=2)[..., None, None]
 
-        def best_res(Es, val):
-            r = jax.vmap(lambda E, a, b: jax.vmap(
-                lambda e: ess.symmetric_epipolar_distance_sq(e, a, b).max()
-            )(E))(Es, x1, x2)
-            return np.asarray(jnp.where(val, r, jnp.inf).min(axis=1))
+        def solved(b, k):
+            return val[b, k] and oracle.symmetric_epipolar_inliers(
+                Es[b, k], x1[b], x2[b], 0.5, 458.0, 458.0).all()
 
-        bp = best_res(Es_p, val_p)
-        bv = best_res(Es_v, val_v)
-        lost = (bv < 1e-4) & ~(bp < 1e-4)
-        assert not lost.any(), (
-            f"kernel lost solved samples {np.argwhere(lost).ravel()}: "
-            f"kernel best {bp[lost]}, vmap best {bv[lost]}"
-        )
+        general = [any(solved(b, k) and abs(np.sum(Es[b, k] * E_gt)) > 1 - 1e-4
+                       for k in range(30)) for b in range(B // 2)]
+        planar = [any(solved(b, k) for k in range(30))
+                  for b in range(B // 2, B)]
+        assert all(general), np.flatnonzero(~np.asarray(general))
+        assert sum(planar) >= 0.75 * len(planar), sum(planar)
 
     def test_p3p_pallas_captures_vmap_solutions(self, rng):
-        """The P3P Pallas kernel (production TPU batch-solver path,
-        interpreter mode here) must capture the true pose on at least as
-        many minimal samples as the vmap path (minus one marginal sample
-        of slack — merged quartic double roots flip under f32
-        reassociation; RANSAC votes such garbage twins out either way)."""
-        from coloc_tpu.geometry import p3p as p3p_ops
+        """The batched P3P solver (vmap of p3p_grunert, the path every
+        backend runs) must recover the true rotation, within 0.1 deg by the
+        float64 oracle's angle metric, on at least 90% of minimal samples
+        (ill-conditioned triads and merged quartic double roots lose f32
+        accuracy; RANSAC votes such candidates out)."""
+        import oracle
 
         B = 77
         X = jnp.asarray(rng.uniform(-3, 3, (B, 3, 3)) + [0, 0, 8],
@@ -534,29 +541,14 @@ class TestBatchScorerParity:
             Xc / np.linalg.norm(Xc, axis=-1, keepdims=True), jnp.float32
         )
 
-        fp, vp = p3p_ops._p3p_flats_pallas(X, bear)
-
-        def one(Xs, bs):
-            poses, valid = p3p_ops.p3p_grunert(Xs, bs)
-            return jnp.concatenate(
-                [poses.R.reshape(4, 9), poses.C.reshape(4, 3)], axis=1
-            ), valid
-
-        fv, vv = jax.vmap(one)(X, bear)
-
-        def captured(f, v):
-            R = np.asarray(f)[..., :9].reshape(B, 4, 3, 3)
-            errs = np.array(
-                [[np.degrees(np.arccos(np.clip(
-                    (np.trace(R[b, i] @ Rg[b].T) - 1) / 2, -1, 1)))
-                  for i in range(4)] for b in range(B)]
-            )
-            errs = np.where(np.asarray(v), errs, np.inf)
-            return errs.min(1) < 0.1
-
-        n_kernel = int(captured(fp, vp).sum())
-        n_vmap = int(captured(fv, vv).sum())
-        assert n_kernel >= n_vmap - 1, (n_kernel, n_vmap)
+        poses, valid = jax.vmap(p3p_ops.p3p_grunert)(X, bear)
+        R, v = np.asarray(poses.R, np.float64), np.asarray(valid)
+        captured = [
+            any(v[b, i] and oracle.rot_angle_deg(R[b, i], Rg[b]) < 0.1
+                for i in range(4))
+            for b in range(B)
+        ]
+        assert sum(captured) >= 0.9 * B, sum(captured)
 
     def test_homography_batch_scorer_matches_vmap(self, rng):
         from coloc_tpu.geometry import homography as homog
@@ -577,14 +569,26 @@ class TestBatchScorerParity:
         np.testing.assert_allclose(got[keep], want[keep], rtol=2e-3, atol=1e-4)
 
 
+def _exhaustive_ladder(res_sq, valid, thr_sq):
+    """numpy ladder: per model, the number of (rung, valid residual) pairs
+    with residual < thr * 4^j over every rung j, counted one by one."""
+    from coloc_tpu.ransac import LADDER_JMAX, LADDER_RUNGS
+
+    r = np.asarray(res_sq, np.float64)
+    out = np.zeros(r.shape[0])
+    for j in range(LADDER_JMAX - LADDER_RUNGS + 1, LADDER_JMAX + 1):
+        out += ((r < thr_sq * 4.0 ** j) & np.asarray(valid)[None, :]).sum(1)
+    return out
+
+
 class TestFusedLadderRank:
     def test_matches_xla_ladder(self, rng):
-        """The fused Pallas pre-rank (ops/ransac_rank.py) must reproduce the
-        XLA ladder (ransac.py nfa branch) exactly: same residual math
-        (robust._p3p_batch_residuals f32), same rung counts, masks applied,
-        behind-camera excluded, uneven Hm padded."""
+        """The pre-rank ladder (ransac.ladder_rank, one log2 + clip pass)
+        must count exactly the rungs an exhaustive per-rung numpy ladder
+        counts over P3P residuals: masks applied, behind-camera residuals
+        (1e12) on no rung, any model count."""
         from coloc_tpu import robust
-        from coloc_tpu.ops import ransac_rank
+        from coloc_tpu.ransac import ladder_rank
 
         Hm, M = 64, 200
         flats = []
@@ -602,26 +606,20 @@ class TestFusedLadderRank:
         focal, thr_sq = 451.0, 16.0
 
         rr = robust._p3p_batch_residuals(flats, Xw, b, focal)
-        v = jnp.log2(jnp.maximum(rr, 1e-30)) - jnp.log2(jnp.float32(thr_sq))
-        cnt = jnp.clip(2.0 - jnp.floor(v * 0.5), 0.0, 5.0)
-        ref = jnp.sum(jnp.where(mask[None, :], cnt, 0.0), axis=1)
-
-        got = ransac_rank.p3p_ladder_rank(flats, Xw, b, mask, focal, thr_sq)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-        # non-tile-multiple model count takes the padded path
-        got2 = ransac_rank.p3p_ladder_rank(
-            flats[:37], Xw, b, mask, focal, thr_sq
-        )
+        assert (np.asarray(rr) >= 1e12).any()   # behind-camera entries
+        got = ladder_rank(rr, mask, thr_sq)
+        np.testing.assert_array_equal(
+            np.asarray(got), _exhaustive_ladder(rr, mask, thr_sq))
+        got2 = ladder_rank(rr[:37], mask, thr_sq)
         assert got2.shape == (37,)
-        np.testing.assert_array_equal(np.asarray(got2), np.asarray(ref[:37]))
+        np.testing.assert_array_equal(np.asarray(got2), np.asarray(got[:37]))
 
     def test_epipolar_rank_matches_xla_ladder(self, rng):
-        """Epipolar (E and F) fused ladder rank vs the XLA division-form
-        ladder: the product-form compare must count identical rungs (away
-        from measure-zero rung ties) for both the focal-scaled essential
-        case and the pixel-coordinate fundamental case."""
+        """Epipolar (E and F) ladder rank vs the exhaustive numpy ladder,
+        for both the focal-scaled essential case and the pixel-coordinate
+        fundamental case."""
         from coloc_tpu.geometry import essential as e_ops
-        from coloc_tpu.ops import ransac_rank
+        from coloc_tpu.ransac import ladder_rank
 
         Hm, M = 90, 300
         Es = jnp.asarray(rng.normal(size=(Hm, 3, 3)), jnp.float32)
@@ -638,22 +636,15 @@ class TestFusedLadderRank:
             rr = e_ops.symmetric_epipolar_distance_sq_batch(
                 Es, a1, a2, s1_sq, s2_sq
             )
-            v = (jnp.log2(jnp.maximum(rr, 1e-30))
-                 - jnp.log2(jnp.float32(thr_sq)))
-            cnt = jnp.clip(2.0 - jnp.floor(v * 0.5), 0.0, 5.0)
-            ref = jnp.sum(jnp.where(mask[None, :], cnt, 0.0), axis=1)
-            got = ransac_rank.epipolar_ladder_rank(
-                Es, a1, a2, mask, s1_sq, s2_sq, thr_sq
-            )
-            np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+            got = ladder_rank(rr, mask, thr_sq)
+            np.testing.assert_array_equal(
+                np.asarray(got), _exhaustive_ladder(rr, mask, thr_sq))
 
     def test_homography_rank_matches_xla_ladder(self, rng):
-        """Homography fused ladder rank (P3P kernel, zmode=nonzero) vs the
-        XLA division-form ladder over f2^2-scaled forward transfer errors,
-        including negative-W points (legitimate projective sign) and
-        near-degenerate |W| ~ 0 exclusions."""
+        """Homography ladder rank over f2^2-scaled forward transfer errors
+        (negative-W points included) vs the exhaustive numpy ladder."""
         from coloc_tpu.geometry import homography as h_ops
-        from coloc_tpu.ops import ransac_rank
+        from coloc_tpu.ransac import ladder_rank
 
         Hm, M = 48, 200
         Hs = jnp.asarray(rng.normal(size=(Hm, 3, 3)), jnp.float32)
@@ -663,57 +654,6 @@ class TestFusedLadderRank:
         f2_sq, thr_sq = 380.0 ** 2, 16.0
 
         rr = f2_sq * h_ops.transfer_error_sq_batch(Hs, x1, x2)
-        v = jnp.log2(jnp.maximum(rr, 1e-30)) - jnp.log2(jnp.float32(thr_sq))
-        cnt = jnp.clip(2.0 - jnp.floor(v * 0.5), 0.0, 5.0)
-        ref = jnp.sum(jnp.where(mask[None, :], cnt, 0.0), axis=1)
-        got = ransac_rank.homography_ladder_rank(
-            Hs, x1, x2, mask, 380.0, thr_sq
-        )
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-    def test_rank_awkward_tile_sizes(self, rng):
-        """Hm > one model tile but not a tile multiple (300) and M > one
-        lane tile but not a tile multiple (1100): the wrappers must pad to
-        FULL tile multiples — a bare granule round-up would silently drop
-        the tail rows (pallas grids truncate, they don't remainder)."""
-        from coloc_tpu import robust
-        from coloc_tpu.ops import ransac_rank
-
-        Hm, M = 300, 1100
-        flats = []
-        for _ in range(Hm):
-            Q, _r = np.linalg.qr(rng.normal(size=(3, 3)))
-            flats.append(
-                np.concatenate([Q.reshape(9), rng.normal(0, 0.5, 3)])
-            )
-        flats = jnp.asarray(np.stack(flats), jnp.float32)
-        Xw = jnp.asarray(
-            rng.uniform(-3, 3, (M, 3)) + np.array([0, 0, 6.0]), jnp.float32
-        )
-        b = Xw / jnp.linalg.norm(Xw, axis=1, keepdims=True)
-        mask = jnp.asarray(rng.random(M) > 0.2)
-        focal, thr_sq = 451.0, 16.0
-
-        rr = robust._p3p_batch_residuals(flats, Xw, b, focal)
-        v = jnp.log2(jnp.maximum(rr, 1e-30)) - jnp.log2(jnp.float32(thr_sq))
-        cnt = jnp.clip(2.0 - jnp.floor(v * 0.5), 0.0, 5.0)
-        ref = jnp.sum(jnp.where(mask[None, :], cnt, 0.0), axis=1)
-        got = ransac_rank.p3p_ladder_rank(flats, Xw, b, mask, focal, thr_sq)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-        # epipolar wrapper, same awkward sizes
-        from coloc_tpu.geometry import essential as e_ops
-
-        Es = jnp.asarray(rng.normal(size=(Hm, 3, 3)), jnp.float32)
-        x1 = jnp.asarray(rng.normal(0, 0.5, (M, 2)), jnp.float32)
-        x2 = jnp.asarray(rng.normal(0, 0.5, (M, 2)), jnp.float32)
-        rrE = e_ops.symmetric_epipolar_distance_sq_batch(
-            Es, x1, x2, 451.0 ** 2, 451.0 ** 2
-        )
-        vE = jnp.log2(jnp.maximum(rrE, 1e-30)) - jnp.log2(jnp.float32(16.0))
-        cntE = jnp.clip(2.0 - jnp.floor(vE * 0.5), 0.0, 5.0)
-        refE = jnp.sum(jnp.where(mask[None, :], cntE, 0.0), axis=1)
-        gotE = ransac_rank.epipolar_ladder_rank(
-            Es, x1, x2, mask, 451.0 ** 2, 451.0 ** 2, 16.0
-        )
-        np.testing.assert_array_equal(np.asarray(gotE), np.asarray(refE))
+        got = ladder_rank(rr, mask, thr_sq)
+        np.testing.assert_array_equal(
+            np.asarray(got), _exhaustive_ladder(rr, mask, thr_sq))

@@ -88,7 +88,7 @@ class TestSession:
     def test_debug_svg_artifacts(self, dataset, tmp_path):
         """debug_dir wires the reference's #ifdef DEBUG overlays at every
         stage (coloc.hpp:153-159, 171-176, 189-192, 203-209, 232-239,
-        298-300 — VERDICT r3 item 7): bootstrap features + putative/inlier
+        298-300): bootstrap features + putative/inlier
         matches, per-frame features + map matches, inter putative + guided
         matches. The --debug-svg CLI flag sets debug_dir=OUT/debug."""
         frames, gt = dataset
@@ -144,8 +144,8 @@ class TestSession:
         assert 0.0 <= float(fused.omega) <= 1.0
 
     def test_run_chunked_matches_run(self, dataset, tmp_path):
-        """Device-resident chunked stepping (lax.scan over the fused step,
-        VERDICT r2 item 2) must reproduce the per-frame host loop's
+        """Device-resident chunked stepping (lax.scan over the fused step)
+        must reproduce the per-frame host loop's
         trajectory: same frame count, same localization successes, filtered
         positions within tolerance (RANSAC keys differ between the paths, so
         bit-equality is not expected — the refined optimum is)."""
@@ -460,7 +460,7 @@ class TestDeterminism:
 
 class TestBatchedIntra:
     def test_intra_pose_all_matches_sequential(self, dataset):
-        """The batched all-drones step (one dispatch, TPU-first shape of the
+        """The batched all-drones step (one dispatch, batched shape of the
         reference's sequential drone loop) must produce the same localization
         quality as per-drone intra_pose on identical inputs."""
         frames, gt = dataset
@@ -519,7 +519,7 @@ class TestFourDrones:
         n_tot = sum(len(v) for v in results.values())
         assert n_tot == D * (F - 1)
         assert n_ok >= n_tot - 2, f"{n_ok}/{n_tot} localized"
-        # N>2 inter-drone scheduling (VERDICT r2 item 3): a ring round fuses
+        # N>2 inter-drone scheduling: a ring round fuses
         # EVERY drone with its predecessor — one fusion destination each
         imgs = {d: frames[d][F - 1] for d in range(D)}
         rr = sess.inter_pose_round(imgs, policy="ring")

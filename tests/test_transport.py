@@ -234,8 +234,7 @@ def test_publisher_degrades_when_bus_dies():
 
 def test_node_reconnects_after_broker_restart():
     """reconnect=True nodes must survive a broker bounce on the same port:
-    redial, resubscribe, and deliver traffic again (VERDICT r4 item 7 —
-    roscpp reconnects implicitly; the native bus should not be weaker).
+    redial, resubscribe, and deliver traffic again.
     Messages in flight during the outage are lost (topic-bus semantics);
     the test asserts EVENTUAL recovery via republish."""
     b = transport.Broker()
